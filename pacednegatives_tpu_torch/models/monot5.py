@@ -1,0 +1,53 @@
+"""monoT5 relevance scoring head: the port of models/monot5.py.
+
+score = log_softmax over the (true, false) verbalizer-token logits at the
+first decoder position, taking the 'true' component.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pacednegatives_tpu_torch.models import t5
+
+# t5 sentencepiece: tokenizer.encode('true')[0] == 1176, 'false' -> 6136.
+VERBALIZER_TRUE = 1176
+VERBALIZER_FALSE = 6136
+
+
+def _pair(first_token_logits: torch.Tensor, rel_id: int,
+          nrel_id: int) -> torch.Tensor:
+    # columns [rel_id, nrel_id] of the full logits (monot5.py:31)
+    return first_token_logits[:, [rel_id, nrel_id]]
+
+
+def relevance_log_probs(first_token_logits: torch.Tensor,
+                        rel_id: int = VERBALIZER_TRUE,
+                        nrel_id: int = VERBALIZER_FALSE) -> torch.Tensor:
+    """(B, vocab) first-position logits -> (B,) log P(true | {true,false})."""
+    return torch.log_softmax(_pair(first_token_logits, rel_id, nrel_id),
+                             dim=-1)[:, 0]
+
+
+def relevance_probs(first_token_logits: torch.Tensor,
+                    rel_id: int = VERBALIZER_TRUE,
+                    nrel_id: int = VERBALIZER_FALSE) -> torch.Tensor:
+    """(B,) P(true)."""
+    return torch.softmax(_pair(first_token_logits, rel_id, nrel_id),
+                         dim=-1)[:, 0]
+
+
+def score_batch(params: dict, cfg: t5.T5Config, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor | None = None,
+                rel_id: int = VERBALIZER_TRUE,
+                nrel_id: int = VERBALIZER_FALSE) -> torch.Tensor:
+    """Score (B, L) 'Query: .. Document: .. Relevant:' prompts -> (B,)
+    scores: one encoder pass and one decode step from the start token."""
+    if attention_mask is None:
+        attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
+    enc = t5.encode(params, cfg, input_ids, attention_mask)
+    B = input_ids.shape[0]
+    dec_in = torch.full((B, 1), cfg.decoder_start_token_id, dtype=torch.long,
+                        device=input_ids.device)
+    logits = t5.decode(params, cfg, dec_in, enc, attention_mask)
+    return relevance_log_probs(logits[:, 0, :], rel_id, nrel_id)

@@ -2,7 +2,9 @@
 
 The JAX package beside it is the reference: module paths mirror it, and
 tests hold each ported module to its JAX counterpart. This package imports
-``torch`` and never ``jax``. The slice ported so far is monoT5 rerank
-serving (``eval.rerank.Reranker``) with the fused attention block (K3) and
-its attention core (K1) as hand-written CUDA kernels (``csrc/``).
+``torch`` and never ``jax``. Ported so far: monoT5 rerank serving
+(``eval.rerank.Reranker``) and the LCE training step (``cli.train`` ->
+``train.runner.run`` -> ``train.step.make_train_step``), with the fused
+attention block's forward (K3), its attention core (K1) and its backward
+(K4) as hand-written CUDA kernels (``csrc/``).
 """

@@ -1,0 +1,27 @@
+"""Training CLI: ``python -m pacednegatives_tpu_torch.cli.train --curriculum
+lce --model base --flash_v3 true --fused_qkv true ...``.
+
+The options are the fields of ``train.runner.RunConfig`` (the JAX CLI's),
+plus ``--device`` (default cuda; there is no fallback to the CPU).
+``cli.train_lce`` presets the curriculum as the reference's train_lce.py.
+"""
+
+from __future__ import annotations
+
+import json
+
+from pacednegatives_tpu_torch.train.runner import RunConfig, run
+from pacednegatives_tpu_torch.utils.config import apply_overrides, parse_cli
+
+
+def main(preset: dict | None = None, argv=None, device: str | None = None) -> dict:
+    overrides = parse_cli(argv)
+    device = overrides.pop("device", None) or device or "cuda"
+    cfg = apply_overrides(RunConfig(**(preset or {})), overrides)
+    summary = run(cfg, device=device)
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``pacednegatives_tpu_torch/csrc/*.cu``. On first use they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a
-plain C interface, which is loaded with ``ctypes``. The library goes into
+The sources are ``pacednegatives_tpu_torch/csrc/*.cu``. On first use each is
+compiled by its own ``nvcc`` for Hopper (``sm_90a``), all at once, and the
+objects are linked into one shared library with a plain C interface, which
+is loaded with ``ctypes``. The library goes into
 ``pacednegatives_tpu_torch/_build/`` (git-ignored), named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 not. Nothing here runs at import time: the CPU tests import every module, and
@@ -23,10 +24,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu")
+SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / spills, kept in the build log
 )
 
@@ -43,6 +44,14 @@ _SIGNATURES = {
     "pnt_t5_attention_fwd": (
         _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P,
         _P, _LL, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # q, k, v, q strides (b, h, l), kv strides, g, g strides, pos, key_mask,
+    # m, l, dq, dq strides, dk, dv, dkv strides, out, out strides, delta,
+    # dpos_part, dpos, B, H, Lq, Lk, dk, rows_per_group, device, stream
+    "pnt_t5_attention_bwd": (
+        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
+        _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
+        _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
 
@@ -76,27 +85,42 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the kernels if the library for these sources is missing.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     Returns (library path, seconds spent compiling; 0.0 if it was there).
-    The compiler's output (including ``-Xptxas -v``) is written beside the
+    The compilers' output (including ``-Xptxas -v``) is written beside the
     library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = so.with_name(f"{tag}.tmp.so")
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", str(obj)]
+            for src, obj in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(c, o, p.returncode) for c, o, p in zip(cmds, outputs, procs)
+              if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        outputs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append((link, outputs[-1], proc.returncode))
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    so.with_suffix(".log").write_text("".join(
+        " ".join(c) + "\n" + o for c, o in zip([*cmds, link], outputs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-6000:]}"
-        )
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n"
+                           f"{out[-6000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so, seconds
 

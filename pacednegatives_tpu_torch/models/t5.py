@@ -6,14 +6,21 @@ Its flat form (``flatten_params``) is a state dict whose keys are those
 paths joined with ".", e.g. ``encoder.block_0.self_attn.q``, so converting
 a JAX checkpoint is a flatten plus ``torch.from_numpy`` (models/convert.py).
 
-The slice ported here is the deterministic forward that serving runs:
-``encode`` and ``decode`` over the ``block_i`` or stacked ``blocks``
-layout, with plain or fused (``qkv`` / ``kv``) attention leaves. Numerics
-follow the JAX package: activations in ``cfg.dtype``, RMSNorm and softmax
-in fp32, scores accumulated in fp32, ``NEG_INF`` added (not -inf) for
-masks. Encoder self-attention goes through the fused-block kernel when
-``cfg.flash_v3`` is set and the shape is eligible, routed exactly as
-``attention`` in the JAX package routes it (t5.py:400-533).
+The slice ported here is the deterministic forward, for serving and for
+training by autograd: ``encode`` and ``decode`` over the ``block_i`` or
+stacked ``blocks`` layout, with plain or fused (``qkv`` / ``kv``) attention
+leaves, and the teacher-forced ``forward_logits``. Numerics follow the JAX
+package: activations in ``cfg.dtype``, RMSNorm and softmax in fp32, scores
+accumulated in fp32, ``NEG_INF`` added (not -inf) for masks. Encoder
+self-attention goes through the fused-block kernels (forward K3, backward
+K4) when ``cfg.flash_v3`` is set and the shape is eligible, routed exactly
+as ``attention`` in the JAX package routes it (t5.py:400-533).
+
+Gradients reach ``rel_bias`` through ``compute_position_bias`` (a gather,
+so autograd scatters the bias cotangent back into the table) and, on the
+fused path, through the kernel's dpos. The JAX step gets the same gradient
+by precomputing the biases once per step and folding their vjp back into
+the table (train/step.py:165-178, 301-305); autograd needs no such step.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import math
 import warnings
 
 import torch
+import torch.utils.checkpoint
 
 from pacednegatives_tpu_torch.ops.flash_v3 import (
     flash_v3_eligible,
@@ -34,10 +42,12 @@ NEG_INF = -1e9  # additive mask value, applied in fp32 (t5.py:33)
 
 @dataclasses.dataclass(frozen=True)
 class T5Config:
-    """The fields of the JAX ``T5Config`` that mean something to the
-    deterministic forward. Dropout and the TPU-only knobs (scan, remat,
-    packed heads/lanes, the Mosaic flash flags) are not carried over; see
-    ROADMAP.md."""
+    """The fields of the JAX ``T5Config`` that the port reads. Dropout
+    (``dropout_rate`` with ``deterministic=False``), the chunked attention
+    path and ``flash_kernel`` are carried so that a config can be converted
+    and checked, and raise ``NotImplementedError`` where they would act
+    (ROADMAP.md, the next training slice). The TPU-only knobs (scan, packed
+    heads/lanes, interpret mode) are not carried over; see ROADMAP.md."""
 
     vocab_size: int = 32128
     d_model: int = 512
@@ -49,13 +59,23 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
+    dropout_rate: float = 0.1  # read only by deterministic=False (not ported)
     tie_word_embeddings: bool = True
     gated_ffn: bool = False  # False = T5 v1.0 ReLU FFN, True = v1.1 gated-GELU
     pad_token_id: int = 0
     decoder_start_token_id: int = 0
     dtype: torch.dtype = torch.float32  # compute dtype for activations
+    # run each block under torch.utils.checkpoint (recompute in backward);
+    # only the "full" policy is ported (the dots policies: ROADMAP.md)
+    remat: bool = False
+    remat_policy: str = "full"
     # "dense" only; "chunked" is not ported yet (ROADMAP.md, queue 1)
     attention_impl: str = "dense"
+    # the Mosaic attention-core kernels of the chunked path: not ported yet
+    flash_kernel: bool = False
+    # train/step.py concatenates q|k|v (self) and k|v (cross) once per step
+    # (fuse_attention_params) and splits the gradients back
+    fused_qkv: bool = False
     # route eligible encoder self-attention through the fused block
     # (ops/flash_v3.py): CUDA kernels on the card, plain versions on the CPU
     flash_v3: bool = False
@@ -166,7 +186,8 @@ def init_params(cfg: T5Config, generator: torch.Generator,
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    """Apply ``fn`` to every tensor leaf of a nested dict (or to a bare
+    tensor)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
@@ -282,6 +303,31 @@ def fuse_attention_params(params: dict) -> dict:
     return walk(params)
 
 
+def split_attention_grads(grads: dict) -> dict:
+    """Inverse of ``fuse_attention_params`` for gradient trees: split "qkv"
+    / "kv" cotangents back into per-projection leaves (t5.py:1260-1288)."""
+
+    def walk(d):
+        if not isinstance(d, dict):
+            return d
+        out = {}
+        for name, v in d.items():
+            if isinstance(v, dict) and "qkv" in v:
+                a, b, c = v["qkv"].chunk(3, dim=-1)
+                v = {**{k: x for k, x in v.items() if k != "qkv"},
+                     "q": a, "k": b, "v": c}
+            elif isinstance(v, dict) and "kv" in v:
+                a, b = v["kv"].chunk(2, dim=-1)
+                v = {**{k: x for k, x in v.items() if k != "kv"},
+                     "k": a, "v": b}
+            else:
+                v = walk(v)
+            out[name] = v
+        return out
+
+    return walk(grads)
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
@@ -359,10 +405,11 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     H, dk = cfg.num_heads, cfg.d_kv
     dt = cfg.dtype
 
-    if cfg.attention_impl != "dense":
+    if cfg.attention_impl != "dense" or cfg.flash_kernel:
         raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet "
-            "(ROADMAP.md queue 1: the chunked path and flash_kernel); use "
+            f"attention_impl={cfg.attention_impl!r}, flash_kernel="
+            f"{cfg.flash_kernel} is not ported yet (ROADMAP.md slice T2: the "
+            "chunked path with its custom VJP and the K2a/K2b kernels); use "
             "'dense', optionally with flash_v3=True"
         )
 
@@ -456,10 +503,35 @@ def _causal_bias(L: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _check_training_knobs(cfg: T5Config, deterministic: bool) -> None:
+    if not deterministic:
+        raise NotImplementedError(
+            "deterministic=False (dropout) is not ported yet (ROADMAP.md "
+            "slice T2); train with dropout off"
+        )
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP.md "
+            "slice T2); the port recomputes whole blocks: use "
+            "remat_policy='full' or remat=False"
+        )
+
+
+def _run_block(cfg: T5Config, fn, *args):
+    """One block, under torch.utils.checkpoint when cfg.remat (the
+    counterpart of jax.checkpoint with the default full-recompute
+    policy)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
            attention_mask: torch.Tensor | None = None, *,
+           deterministic: bool = True,
            pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Encoder stack: (B, L) token ids -> (B, L, D) hidden states."""
+    _check_training_knobs(cfg, deterministic)
     if attention_mask is None:
         attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
     enc = params["encoder"]
@@ -476,19 +548,24 @@ def encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
     # fused block takes them apart
     bias = (pos_bias, _padding_bias(attention_mask))
     eps = cfg.layer_norm_epsilon
-    for i in range(_num_blocks(enc)):
-        blk = _block(enc, i)
+
+    def block(x, blk, bias):
         h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
         x = x + attention(blk["self_attn"], cfg, h, h, bias)
         h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
-        x = x + mlp(blk["mlp"], cfg, h)
+        return x + mlp(blk["mlp"], cfg, h)
+
+    for i in range(_num_blocks(enc)):
+        x = _run_block(cfg, block, x, _block(enc, i), bias)
     return rms_norm(x, enc["final_ln"]["scale"], eps, dt)
 
 
 def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
            encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor, *,
+           deterministic: bool = True,
            self_pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Decoder stack with teacher forcing -> (B, Lt, vocab) fp32 logits."""
+    _check_training_knobs(cfg, deterministic)
     dec = params["decoder"]
     dt = cfg.dtype
     Lt = decoder_input_ids.shape[1]
@@ -503,15 +580,18 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
     self_bias = (self_pos_bias, None)
     cross_bias = (None, _padding_bias(encoder_mask))
     eps = cfg.layer_norm_epsilon
-    for i in range(_num_blocks(dec)):
-        blk = _block(dec, i)
+
+    def block(x, blk, self_bias, cross_bias, enc_h):
         h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
         x = x + attention(blk["self_attn"], cfg, h, h, self_bias)
         h = rms_norm(x, blk["ln_cross"]["scale"], eps, dt)
-        x = x + attention(blk["cross_attn"], cfg, h, encoder_hidden,
-                          cross_bias)
+        x = x + attention(blk["cross_attn"], cfg, h, enc_h, cross_bias)
         h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
-        x = x + mlp(blk["mlp"], cfg, h)
+        return x + mlp(blk["mlp"], cfg, h)
+
+    for i in range(_num_blocks(dec)):
+        x = _run_block(cfg, block, x, _block(dec, i), self_bias, cross_bias,
+                       encoder_hidden)
     x = rms_norm(x, dec["final_ln"]["scale"], eps, dt)
     # fp32-accumulated LM head (t5.py:1553-1565); the full-vocab product is
     # a plain matmul outside any kernel
@@ -521,3 +601,25 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
     else:
         head = params["lm_head"]["embedding"].to(dt)
     return torch.matmul(x.float(), head.float().t())
+
+
+def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    """Teacher-forcing decoder inputs from labels (-100 treated as pad)."""
+    labels = torch.where(labels == -100, cfg.pad_token_id, labels)
+    start = torch.full((labels.shape[0], 1), cfg.decoder_start_token_id,
+                       dtype=labels.dtype, device=labels.device)
+    return torch.cat([start, labels[:, :-1]], dim=1)
+
+
+def forward_logits(params: dict, cfg: T5Config, input_ids: torch.Tensor,
+                   labels: torch.Tensor,
+                   attention_mask: torch.Tensor | None = None, *,
+                   deterministic: bool = True) -> torch.Tensor:
+    """Full seq2seq forward (t5.py:1580-1609): one teacher-forced pass,
+    (B, L) prompts and (B, Lt) labels -> (B, Lt, vocab) fp32 logits."""
+    if attention_mask is None:
+        attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
+    enc = encode(params, cfg, input_ids, attention_mask,
+                 deterministic=deterministic)
+    return decode(params, cfg, shift_right(labels, cfg), enc, attention_mask,
+                  deterministic=deterministic)

@@ -10,14 +10,24 @@ Shapes are small and ragged on purpose (lengths that are not multiples of
 the kernels' 64-row tiles); chip_smoke.py checks the serving shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from pacednegatives_tpu_torch.curriculum import EtaController
 from pacednegatives_tpu_torch.data import HashTokenizer, TextCorpus, TokenizedStore
+from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
+from pacednegatives_tpu_torch.data.triples import TripletStore
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.ops import flash, flash_v3, gemm
+from pacednegatives_tpu_torch.train import (
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +156,133 @@ def test_small_rerank_matches_cpu(cuda):
     s_cpu = cpu.score_pairs(q_rows, d_rows)
     assert np.isfinite(s_gpu).all()
     assert np.abs(s_gpu - s_cpu).max() <= 5e-2
+
+
+def _bwd_inputs(g, B, H, L, dk):
+    qkv = _randn(g, B, L, 3, H, dk)
+    q, k, v = (qkv[:, :, t].transpose(1, 2) for t in range(3))
+    dout = _randn(g, B, L, H, dk).transpose(1, 2)
+    pos = torch.randn((H, L, L), generator=g, device="cuda") * 0.5
+    lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
+    lens[0] = L
+    km = torch.where(torch.arange(L, device="cuda")[None] < lens[:, None],
+                     0.0, flash.NEG_INF).float()
+    _, m, l = flash.flash_attention_forward(q, k, v, pos, km)
+    return q, k, v, dout, pos, km, m, l
+
+
+@pytest.mark.parametrize("B,H,L,dk", [(5, 2, 72, 64), (2, 3, 130, 128),
+                                      (1, 1, 33, 64)])
+def test_attention_backward_matches_plain(cuda, B, H, L, dk):
+    """The backward core against its plain version at ragged lengths and
+    batch sizes that leave a partial dpos group (4 rows per group).
+    Tolerance: 2 bf16 ulps of each output's largest magnitude (both round
+    fp32 sums once, in another order); dpos 1e-3 of its largest."""
+    args = _bwd_inputs(cuda, B, H, L, dk)
+    before = flash.attention_backward.launches
+    got = flash.attention_backward(*args)
+    ref = flash.attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert flash.attention_backward.launches == before + 1
+    for name, a, b in zip(("dq", "dk", "dv", "out"), got[:4], ref[:4]):
+        assert a.dtype == torch.bfloat16, name
+        tol = 2 * 2.0**-7 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+    scale = ref[4].abs().max().item()
+    assert (got[4] - ref[4]).abs().max().item() <= 1e-3 * scale
+
+
+def test_attention_backward_dpos_is_deterministic(cuda):
+    args = _bwd_inputs(cuda, 9, 2, 100, 64)
+    first = flash.attention_backward(*args)
+    second = flash.attention_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_backward_raises_on_what_it_cannot_take(cuda):
+    q, k, v, dout, pos, km, m, l = _bwd_inputs(cuda, 1, 1, 64, 64)
+    with pytest.raises(ValueError, match="m must"):
+        flash.attention_backward(q, k, v, dout, pos, km, m.double(), l)
+    with pytest.raises(TypeError):
+        flash.attention_backward(q, k, v, dout, pos, km, m, l,
+                                 out=torch.empty_like(q, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("L", [64, 100])
+def test_v3_backward_and_autograd_match_plain(cuda, L):
+    """K4 (GEMM + backward core) against its plain version, and the
+    autograd Function's gradients through both kernels against autograd
+    through the plain forward."""
+    B, D, H, dk = 3, 256, 4, 64
+    inner = H * dk
+    x = _randn(cuda, B, L, D)
+    wqkv = _randn(cuda, D, 3 * inner, scale=D**-0.5)
+    wo = _randn(cuda, inner, D, scale=inner**-0.5)
+    pos3 = torch.randn((H, L, L), generator=cuda, device="cuda") * 0.3
+    km = torch.zeros((B, L), device="cuda")
+    km[1, L // 2:] = flash.NEG_INF
+    _, m, l = flash_v3.v3_forward(x, wqkv, wo, pos3, km)
+    d_attn = _randn(cuda, B, L, inner)
+    got = flash_v3.v3_backward(x, wqkv, pos3, km, m, l, d_attn)
+    ref = flash_v3.v3_backward_plain(x, wqkv, pos3, km, m, l, d_attn)
+    for a, b in zip(got[:2], ref[:2]):
+        tol = 2 * 2.0**-7 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    assert (got[2] - ref[2]).abs().max().item() <= \
+        1e-3 * ref[2].abs().max().item()
+    cot = _randn(cuda, B, L, D)
+    grads = []
+    for fn in (flash_v3.fused_self_attention,
+               flash_v3.fused_self_attention_plain):
+        leaves = [t.detach().float().requires_grad_() for t in (x, wqkv, wo)]
+        p = pos3.clone().requires_grad_()
+        y = fn(*(t.to(torch.bfloat16) for t in leaves), p, km)
+        (y.float() * cot.float()).sum().backward()
+        grads.append([t.grad for t in leaves] + [p.grad])
+    # bf16 products on both routes, rounded at different points: a few
+    # percent of each gradient's norm
+    for a, b in zip(*grads):
+        assert ((a - b).norm() / b.norm()).item() <= 5e-2
+
+
+def test_train_step_kernels_match_dense(cuda):
+    """One LCE step at a small width: flash_v3 (K3 + K4 kernels) against
+    the dense route on the same weights and batch, both bf16."""
+    tok = HashTokenizer(vocab_size=512)
+    corpus = TextCorpus.synthetic(num_docs=32, num_queries=8, seed=0,
+                                  doc_len=60, query_len=8)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=12,
+                                 max_d_tokens=60)
+    dc = DeviceCorpus.build(store, TripletStore.synthetic(corpus, 16, 10),
+                            device="cuda")
+    cfg0 = t5.T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                       num_heads=2, num_layers=2, num_decoder_layers=2,
+                       dtype=torch.bfloat16, fused_qkv=True)
+    params = t5.init_params(cfg0, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    ctrl = EtaController(eta0=2.0, meta_lr=0.01, warmup_steps=1,
+                         total_steps=8, kind="lce", objective="weighted_ce",
+                         optimizer="adamw", clamp=False, ce_scale=18.7)
+    batch = dc.lce_batch(torch.Generator(device="cuda").manual_seed(1),
+                         torch.arange(4, device="cuda"), 0.5, 3)
+    out = []
+    for v3 in (True, False):
+        tx = make_optimizer(1e-2, total_steps=8, warmup_steps=1)
+        step = make_train_step(dataclasses.replace(cfg0, flash_v3=v3), ctrl,
+                               tx, loss="lce", n_neg_per_example=3,
+                               rel_id=tok.true_id, nrel_id=tok.false_id)
+        before = flash.attention_backward.launches
+        state, metrics = step(init_train_state(params, tx, ctrl.init("cuda")),
+                              batch)
+        torch.cuda.synchronize()
+        assert flash.attention_backward.launches - before == (2 if v3 else 0)
+        out.append((metrics["loss"].item(), t5.flatten_params(
+            state.opt_state.mu)))
+    (l_on, mu_on), (l_off, mu_off) = out
+    # bf16 rounding noise between the routes (chip_smoke.py's tolerances)
+    assert np.isfinite(l_on) and abs(l_on - l_off) <= 1e-2 * abs(l_off)
+    rel = [((mu_on[k] - b).norm() / b.norm()).item()
+           for k, b in mu_off.items() if b.norm() > 0]
+    assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05

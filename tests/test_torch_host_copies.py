@@ -1,10 +1,12 @@
 """The port's copies of the JAX package's numpy-only host modules.
 
-``pacednegatives_tpu_torch/data/{tokenizer,corpus,pipeline,spm_export}.py``
-are copies, kept because the JAX package's ``data/__init__`` imports JAX
-eagerly. Each copy must equal its original except for import lines, and
-produce the same ids, masks and lengths. The port package as a whole must
-import with ``jax`` unavailable, as on the machine with the card."""
+``pacednegatives_tpu_torch/data/{tokenizer,corpus,pipeline,spm_export,
+triples}.py`` and ``utils/config.py`` are copies, kept because the JAX
+package's ``data/__init__`` imports JAX eagerly and the port imports
+nothing of the JAX package. Each copy must equal its original except for
+import lines, and produce the same ids, masks and lengths. The port package
+as a whole must import with ``jax`` unavailable, as on the machine with the
+card."""
 
 import difflib
 import subprocess
@@ -24,12 +26,14 @@ from pacednegatives_tpu_torch.data import tokenizer as ttokenizer
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize(
-    "name", ["tokenizer.py", "corpus.py", "pipeline.py", "spm_export.py"]
-)
+COPIES = {"tokenizer.py": "data", "corpus.py": "data", "pipeline.py": "data",
+          "spm_export.py": "data", "triples.py": "data", "config.py": "utils"}
+
+
+@pytest.mark.parametrize("name", list(COPIES))
 def test_copy_differs_only_in_import_lines(name):
-    orig = (ROOT / "pacednegatives_tpu" / "data" / name).read_text()
-    copy = (ROOT / "pacednegatives_tpu_torch" / "data" / name).read_text()
+    orig = (ROOT / "pacednegatives_tpu" / COPIES[name] / name).read_text()
+    copy = (ROOT / "pacednegatives_tpu_torch" / COPIES[name] / name).read_text()
     changed = [
         line[1:] for line in difflib.ndiff(orig.splitlines(), copy.splitlines())
         if line[:1] in "+-" and line[1:].strip()
@@ -102,6 +106,14 @@ def test_port_imports_without_jax():
         "import pacednegatives_tpu_torch.models\n"
         "import pacednegatives_tpu_torch.models.convert\n"
         "import pacednegatives_tpu_torch.eval\n"
+        "import pacednegatives_tpu_torch.ops.losses\n"
+        "import pacednegatives_tpu_torch.ops.sampling\n"
+        "import pacednegatives_tpu_torch.data.device_corpus\n"
+        "import pacednegatives_tpu_torch.curriculum\n"
+        "import pacednegatives_tpu_torch.train\n"
+        "import pacednegatives_tpu_torch.train.runner\n"
+        "import pacednegatives_tpu_torch.cli.train\n"
+        "import pacednegatives_tpu_torch.cli.train_lce\n"
         "bad = [m for m in sys.modules if m == 'pacednegatives_tpu'\n"
         "       or m.startswith('pacednegatives_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1,36 +1,54 @@
-// T5 attention core, backward, for Hopper (sm_90a).
+// T5 attention core, backward, for Hopper (sm_90a): the fused block's
+// backward core (K4) and the chunked path's kernel backward (K2a, K2b).
 //
 // Per (batch b, head h), with s = q . k^T + pos[h] + key_mask[b] and the
 // forward's softmax statistics (m, l):
-//   p     = exp(s - m) / l                 (normalised BEFORE rounding)
-//   o     = bf16(p) . v                    (the recomputed attention output)
-//   delta = sum_c g . o                    (fp32, from the fp32 o)
-//   dv    = bf16(p)^T . g
-//   ds    = p * (g . v^T - delta)
-//   dq    = bf16(ds) . k,  dk = bf16(ds)^T . q
+//   p     = exp(s - m) / l                 (fp32, normalised BEFORE rounding)
+//   dv    = p^T . g
+//   ds    = p * (g . v^T - delta)          (fp32)
+//   dq    = ds . k,  dk = ds^T . q
 //   dpos[h] = sum_b ds                     (fp32, deterministic)
-// Products take bf16 operands and accumulate in fp32; dq/dk/dv and o are
-// stored in bf16. This is the arithmetic of _v3_bwd_kernel, the per-head
-// core of v3_backward (pacednegatives_tpu/ops/flash_v3.py:196-271), which
-// this file replaces together with ops/gemm.py (the qkv recompute).
+// Three entry modes share the tiling, the loaders and kernels B and C:
+//   K4  (pnt_t5_attention_bwd) replaces the per-head core of v3_backward
+//       (pacednegatives_tpu/ops/flash_v3.py:196-271, pallas_call at :279;
+//       with ops/gemm.py for the qkv recompute): g is bf16, delta is not
+//       given, so kernel A first recomputes o = bf16(p) . v and
+//       delta = sum_c g . o (fp32, from the fp32 o); p, g and ds are bf16
+//       operands of bf16 WMMA products with fp32 accumulation; dq/dk/dv and
+//       o are stored in bf16 through strides.
+//   K2b (pnt_t5_attention_core_bwd, fp32_operands = 0) replaces
+//       flash_attention_backward_v2 (pacednegatives_tpu/ops/flash.py:599,
+//       pallas_call at :614): delta (dcap) and the fp32 g are given; p, g
+//       and ds are rounded to bf16 as the products' operands (flash.py:
+//       553-576), bf16 WMMA as in K4; dq/dk/dv leave in fp32.
+//   K2a (pnt_t5_attention_core_bwd, fp32_operands = 1) replaces
+//       flash_attention_backward (ops/flash.py:316, pallas_calls at :353
+//       and :384): every product takes fp32 operands (flash.py:215-232,
+//       277-298), which WMMA cannot, so the products are plain fp32 FMA
+//       loops (SIMT); q/k/v are bf16 in memory and widened exactly.
 //
-// What bounds it: at the training shape (B = 128, H = 12, L = 188, dk = 64)
-// the nine L x L x dk products below are ~63 GFLOP per call and the
-// exp / divide work runs on 3 * B*H*L*L scores; scores never leave the SM.
-// The TPU kernel holds one batch row's whole qkv and every head in VMEM and
-// carries dpos across its sequential batch grid. Hopper blocks run in
-// parallel and in no order, so the work is split three ways, none of which
-// uses atomics:
+// What bounds it: K4 at its training shape (B 128, H 12, L 188, dk 64) is
+// nine L x L x dk products per (b, h), ~63 GFLOP a call; K2b at the chunked
+// path's (B 16, H 12, L 512, dk 64) five, ~32 GFLOP; both also run the exp /
+// divide on B*H*L*L scores, which never leave the SM. K2a is bound by
+// shared-memory loads: each fp32 FMA reads one operand from shared memory (a
+// broadcast within a lane pair), far below the tensor cores; it is taken
+// only where the TPU's resident-memory gate sends long sequences (L >= 768
+// at t5-base), and is right before fast.
+//
+// The TPU kernels carry dq / dk / dv / dpos across sequential grid steps.
+// Hopper blocks run in parallel and in no order, so the work is split three
+// ways, none of which uses atomics:
 //
 //   A. dq pass, one block per (64-query tile, head, group of batch rows):
-//      for each row b of its group it sweeps the key tiles twice, first to
-//      recompute o and delta (written out: kernel B reads delta), then for
-//      ds and dq. It owns the (64 x Lk) band of its group's dpos partial
-//      and adds ds into it in a fixed order (the band stays hot in L2).
+//      for each row b of its group, (K4 only) one sweep over the key tiles
+//      recomputes o and delta (written out: kernel B reads delta), then one
+//      sweep computes ds and dq. The block owns the (64 x Lk) band of its
+//      group's dpos partial and adds ds into it in row order (the band stays
+//      hot in L2).
 //   B. dk/dv pass, one block per (64-key tile, head, b): sweeps the query
-//      tiles, with each warp owning 16 keys, and computes S^T and dP^T
-//      directly so dk and dv accumulate in registers without crossing
-//      warps.
+//      tiles with each warp owning 16 keys, and computes S^T and dP^T
+//      directly so dk and dv accumulate in the warp's registers.
 //   C. dpos[h, i, j] = sum over groups of the partials, in group order.
 //
 // So dpos is bitwise reproducible run to run, and dq (over key tiles) and
@@ -38,21 +56,22 @@
 //
 // Ragged lengths: rows past Lq and keys past Lk are zero-filled and get
 // p = 0, so they contribute nothing and nothing is stored for them (the TPU
-// wrapper pads L to 16 and masks instead). q/k/v/g/dq/dk/dv/o are addressed
-// through (batch, head, row) strides with a contiguous head dimension, so
-// the fused block reads q/k/v as views of its (B, L, 3*H*dk) qkv buffer and
-// writes dq/dk/dv straight into the (B, L, 3*H*dk) dqkv layout.
-// Layout inside a warp follows t5_attention_fwd.cu: lanes 2r and 2r+1 own
-// row r of the warp's 16 and take its interleaved columns; WMMA bf16
-// 16x16x16 fragments for the products. Not yet done (later work):
-// mma.sync/wgmma register tiles, cp.async/TMA prefetch, one sweep instead
-// of three recomputations of s.
+// wrappers pad and mask instead). Every tensor of (batch, head, row) shape
+// is addressed through strides with a contiguous head dimension, so the
+// fused block reads q/k/v as views of its (B, L, 3*H*dk) qkv buffer and
+// writes dq/dk/dv straight into the (B, L, 3*H*dk) dqkv layout. Inside a
+// warp, lanes 2r and 2r+1 own row r of the warp's 16 and take its
+// interleaved columns. Not yet done (later work): mma.sync / wgmma register
+// tiles and cp.async / TMA prefetch, tensor-core 3xTF32 products for K2a,
+// one sweep instead of several recomputations of s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -64,24 +83,31 @@ constexpr int BQ = 64;   // query rows per tile (16 per warp)
 constexpr int BKV = 64;  // keys per tile (16 per warp in kernel B)
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int LDPOS = BKV + 1;  // fp32 pos tile rows in kernel B
+constexpr int LDPOS = BKV + 1;      // fp32 pos tile rows in kernel B
+constexpr int HALF_COLS = BKV / 2;  // columns of a 64-wide row per lane
 
-template <int DK>
-struct Smem {
-  static constexpr int LDQ = DK + 8;     // bf16 rows of q/k/v/g tiles
-  static constexpr int LDP = BKV + 8;    // bf16 64-wide probability rows
+// F32: the products take fp32 operands (K2a); otherwise bf16 (K4, K2b).
+template <int DK, bool F32>
+struct Cfg {
+  typedef typename std::conditional<F32, float, bf16>::type T;
+  // Tile rows: bf16 rows padded by 8 (WMMA wants ld % 8 == 0 and 32-byte
+  // aligned fragments); fp32 rows padded by 1, so the 16 rows a warp reads
+  // at one column fall in 16 different banks.
+  static constexpr int LDQ = F32 ? DK + 1 : DK + 8;
+  static constexpr int LDP = F32 ? BKV + 1 : BKV + 8;  // 64-wide P rows
   static constexpr int LDS = (DK > BKV ? DK : BKV) + 4;  // fp32 scratch
   static constexpr int TILE = 64 * LDQ;  // elements
   static constexpr int P_ELEMS = 64 * LDP;
   static constexpr int S_ELEMS = 64 * LDS;
-  // A: Q, G, K, V tiles, P (or dS), fp32 scratch
-  static constexpr int BYTES_A = (4 * TILE + P_ELEMS) * 2 + S_ELEMS * 4;
+  static constexpr int TB = static_cast<int>(sizeof(T));
+  // A: Q, G, K, V tiles, P (dS), fp32 scratch
+  static constexpr int BYTES_A = (4 * TILE + P_ELEMS) * TB + S_ELEMS * 4;
   // B: K, V, Q, G tiles, P^T, dS^T, fp32 scratch, pos tile, m / l / delta
-  static constexpr int BYTES_B = (4 * TILE + 2 * P_ELEMS) * 2 +
+  static constexpr int BYTES_B = (4 * TILE + 2 * P_ELEMS) * TB +
                                  (S_ELEMS + BQ * LDPOS + 3 * BQ) * 4;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Frag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
@@ -89,95 +115,299 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
     FragBT;
 
-// Copy `rows_valid` rows of a 64 x DK bf16 tile (row stride `ld` elements)
-// into shared memory, 16 bytes a thread; rows past rows_valid become zero.
-template <int DK>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ld, int rows_valid) {
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+
+__device__ __forceinline__ void store_pair(bf16* d, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* d, float a, float b) {
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+}
+
+// `rows_valid` rows of a 64 x DK bf16 tile (row stride `ld` elements) into
+// shared memory as T, 16 bytes a thread; rows past rows_valid become zero.
+template <int DK, bool F32>
+__device__ __forceinline__ void load_tile(typename Cfg<DK, F32>::T* dst,
+                                          const bf16* src, long long ld,
+                                          int rows_valid) {
   constexpr int CPR = DK / 8;
   for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
     const int r = c / CPR, col = (c % CPR) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid)
       val = *reinterpret_cast<const uint4*>(src + r * ld + col);
-    *reinterpret_cast<uint4*>(dst + r * Smem<DK>::LDQ + col) = val;
-  }
-}
-
-// out (16 x 64, fp32, this warp's rows of the scratch) = A_w . B^T, where
-// A_w is the warp's 16 rows of a 64 x DK tile and B a 64 x DK tile, both
-// row-major in shared memory (B row-major is B^T column-major).
-template <int DK>
-__device__ __forceinline__ void product_nt(const bf16* a_w, const bf16* b,
-                                           float* out_w) {
-  constexpr int LDQ = Smem<DK>::LDQ;
-  Acc acc[4];
+    if constexpr (F32) {
+      const bf16* e = reinterpret_cast<const bf16*>(&val);
+      float* d = dst + r * Cfg<DK, F32>::LDQ + col;
 #pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DK; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_w + kk, LDQ);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragBT bt;
-      wmma::load_matrix_sync(bt, b + n * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(acc[n], a, bt, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out_w + n * 16, acc[n], Smem<DK>::LDS,
-                            wmma::mem_row_major);
-}
-
-// acc[n] (16 x DK) += P_w . B, P_w the warp's 16 rows of a 64-wide bf16
-// tile (row stride LDP), B a 64 x DK row-major bf16 tile.
-template <int DK>
-__device__ __forceinline__ void product_nn(const bf16* p_w, const bf16* b,
-                                           Acc* acc) {
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, p_w + kk, Smem<DK>::LDP);
-#pragma unroll
-    for (int n = 0; n < DK / 16; ++n) {
-      FragB bb;
-      wmma::load_matrix_sync(bb, b + kk * Smem<DK>::LDQ + n * 16,
-                             Smem<DK>::LDQ);
-      wmma::mma_sync(acc[n], a, bb, acc[n]);
+      for (int i = 0; i < 8; ++i) d[i] = __bfloat162float(e[i]);
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * Cfg<DK, F32>::LDQ + col) = val;
     }
   }
 }
 
-// Store the warp's 16 x DK accumulator as bf16 rows `row0 + rr` of a
-// strided (row stride ld) destination, skipping rows at or past `rows`.
-// Staged through the warp's rows of the fp32 scratch.
-template <int DK>
-__device__ __forceinline__ void store_rows(const Acc* acc, float* scratch_w,
-                                           bf16* dst, long long ld, int row0,
-                                           int rows) {
+// The same for an fp32 source (K2a/K2b's g): kept fp32 for K2a, rounded to
+// bf16 for K2b (its products take bf16(g), flash.py:555).
+template <int DK, bool F32>
+__device__ __forceinline__ void load_tile(typename Cfg<DK, F32>::T* dst,
+                                          const float* src, long long ld,
+                                          int rows_valid) {
+  constexpr int CPR = DK / 4;
+  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows_valid)
+      val = *reinterpret_cast<const float4*>(src + r * ld + col);
+    typename Cfg<DK, F32>::T* d = dst + r * Cfg<DK, F32>::LDQ + col;
+    if constexpr (F32) {
+      d[0] = val.x;
+      d[1] = val.y;
+      d[2] = val.z;
+      d[3] = val.w;
+    } else {
+      store_pair(d, val.x, val.y);
+      store_pair(d + 2, val.z, val.w);
+    }
+  }
+}
+
+// out[j] = (A_w . B^T)[r, half + 2j] for the lane's row r = lane / 2: A_w
+// the warp's 16 rows of a 64 x DK tile, B a 64 x DK tile, both row-major in
+// shared memory. WMMA (through the warp's 16 rows of the fp32 scratch) for
+// bf16, an FMA loop for fp32.
+template <int DK, bool F32>
+__device__ __forceinline__ void product_nt(
+    const typename Cfg<DK, F32>::T* a_w, const typename Cfg<DK, F32>::T* b,
+    float* scratch_w, float (&out)[HALF_COLS]) {
+  using C = Cfg<DK, F32>;
   const int lane = threadIdx.x % 32;
-  __syncwarp();  // every lane is done reading the scratch
+  const int r = lane >> 1, half = lane & 1;
+  if constexpr (F32) {
 #pragma unroll
-  for (int n = 0; n < DK / 16; ++n)
-    wmma::store_matrix_sync(scratch_w + n * 16, acc[n], Smem<DK>::LDS,
-                            wmma::mem_row_major);
-  __syncwarp();
-  for (int idx = lane; idx < 16 * (DK / 2); idx += 32) {
-    const int rr = idx / (DK / 2), c = (idx % (DK / 2)) * 2;
-    if (row0 + rr >= rows) continue;
-    const float* s = scratch_w + rr * Smem<DK>::LDS + c;
-    *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + rr) * ld + c) =
-        __floats2bfloat162_rn(s[0], s[1]);
+    for (int j = 0; j < HALF_COLS; ++j) out[j] = 0.0f;
+    const float* a_row = a_w + r * C::LDQ;
+    const float* b_col = b + half * C::LDQ;
+#pragma unroll 4
+    for (int kk = 0; kk < DK; ++kk) {
+      const float a = a_row[kk];
+#pragma unroll
+      for (int j = 0; j < HALF_COLS; ++j)
+        out[j] = fmaf(a, b_col[2 * j * C::LDQ + kk], out[j]);
+    }
+  } else {
+    Frag acc[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < DK; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, a_w + kk, C::LDQ);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        FragBT bt;
+        wmma::load_matrix_sync(bt, b + n * 16 * C::LDQ + kk, C::LDQ);
+        wmma::mma_sync(acc[n], a, bt, acc[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      wmma::store_matrix_sync(scratch_w + n * 16, acc[n], C::LDS,
+                              wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < HALF_COLS; ++j)
+      out[j] = scratch_w[r * C::LDS + half + 2 * j];
+    __syncwarp();  // every lane has read its row: the scratch is free
   }
-  __syncwarp();
 }
 
+// A warp's 16 x DK fp32 accumulator: acc += P_w . B, P_w the warp's 16 rows
+// of a 64-wide T tile (row stride LDP), B a 64 x DK row-major T tile.
+template <int DK, bool F32>
+struct Accum;
+
+template <int DK>
+struct Accum<DK, false> {  // WMMA fragments
+  using C = Cfg<DK, false>;
+  Frag frag[DK / 16];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int n = 0; n < DK / 16; ++n) wmma::fill_fragment(frag[n], 0.0f);
+  }
+  __device__ __forceinline__ void add(const bf16* p_w, const bf16* b) {
+#pragma unroll
+    for (int kk = 0; kk < 64; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, p_w + kk, C::LDP);
+#pragma unroll
+      for (int n = 0; n < DK / 16; ++n) {
+        FragB bb;
+        wmma::load_matrix_sync(bb, b + kk * C::LDQ + n * 16, C::LDQ);
+        wmma::mma_sync(frag[n], a, bb, frag[n]);
+      }
+    }
+  }
+  // rows row0 + rr (rr < 16) of a destination with row stride ld, as OT,
+  // skipping rows at or past `rows`; staged through the warp's rows of the
+  // fp32 scratch, which still hold the fp32 values afterwards
+  template <typename OT>
+  __device__ __forceinline__ void store(float* scratch_w, OT* dst,
+                                        long long ld, int row0,
+                                        int rows) const {
+    const int lane = threadIdx.x % 32;
+    __syncwarp();  // every lane is done reading the scratch
+#pragma unroll
+    for (int n = 0; n < DK / 16; ++n)
+      wmma::store_matrix_sync(scratch_w + n * 16, frag[n], C::LDS,
+                              wmma::mem_row_major);
+    __syncwarp();
+    for (int idx = lane; idx < 16 * (DK / 2); idx += 32) {
+      const int rr = idx / (DK / 2), c = (idx % (DK / 2)) * 2;
+      if (row0 + rr >= rows) continue;
+      const float* s = scratch_w + rr * C::LDS + c;
+      store_pair(dst + (row0 + rr) * ld + c, s[0], s[1]);
+    }
+    __syncwarp();
+  }
+};
+
+template <int DK>
+struct Accum<DK, true> {  // per lane: row lane / 2, columns half + 2j
+  using C = Cfg<DK, true>;
+  float v[DK / 2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < DK / 2; ++j) v[j] = 0.0f;
+  }
+  __device__ __forceinline__ void add(const float* p_w, const float* b) {
+    const int lane = threadIdx.x % 32;
+    const float* p_row = p_w + (lane >> 1) * C::LDP;
+    const float* b_col = b + (lane & 1);
+#pragma unroll 4
+    for (int kk = 0; kk < 64; ++kk) {
+      const float p = p_row[kk];
+#pragma unroll
+      for (int j = 0; j < DK / 2; ++j)
+        v[j] = fmaf(p, b_col[kk * C::LDQ + 2 * j], v[j]);
+    }
+  }
+  __device__ __forceinline__ void store(float*, float* dst, long long ld,
+                                        int row0, int rows) const {
+    const int lane = threadIdx.x % 32;
+    const int row = row0 + (lane >> 1);
+    if (row >= rows) return;
+    float* d = dst + row * ld + (lane & 1);
+#pragma unroll
+    for (int j = 0; j < DK / 2; ++j) d[2 * j] = v[j];
+  }
+};
+
 // ---------------------------------------------------------------------------
-// A: o, delta, dq and the dpos partials
+// A: dq and the dpos partials (K4 also o and delta)
 // ---------------------------------------------------------------------------
 
+// Shared-memory layout of kernel A: Q, G, K, V tiles, P (dS), fp32 scratch.
+template <int DK, bool F32>
+struct TilesA {
+  using C = Cfg<DK, F32>;
+  using T = typename C::T;
+  T *q, *g, *k, *v, *p;
+  float* s;
+  __device__ __forceinline__ explicit TilesA(unsigned char* raw) {
+    q = reinterpret_cast<T*>(raw);
+    g = q + C::TILE;
+    k = g + C::TILE;
+    v = k + C::TILE;
+    p = v + C::TILE;
+    s = reinterpret_cast<float*>(p + C::P_ELEMS);
+  }
+};
+
+// One batch row of a kernel-A block, with its q and g tiles loaded: sweep
+// the key tiles for ds = p (g . v^T - d_i) and dq += ds . k, add ds into
+// the block's band of the group's dpos partial (`first`: the group's first
+// row, which writes instead of adding), and store dq rows q0.. through
+// `dq_b` (row stride dq_sl).
+template <int DK, bool F32, typename OT>
+__device__ __forceinline__ void dq_sweep(
+    const TilesA<DK, F32>& t, const bf16* kb, const bf16* vb, long long kv_sl,
+    const float* pos_row, const float* mask_row, float m_i, float l_i,
+    float d_i, float* part, bool first, OT* dq_b, long long dq_sl, int q0,
+    int Lq, int Lk) {
+  using C = Cfg<DK, F32>;
+  using T = typename C::T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = warp * 16 + (lane >> 1), half = lane & 1;
+  const bool row_ok = q0 + row < Lq;
+  float* s_row = t.s + row * C::LDS;
+  float* s_w = t.s + warp * 16 * C::LDS;
+  T* p_row = t.p + row * C::LDP;
+  const T* sQ_w = t.q + warp * 16 * C::LDQ;
+  const T* sG_w = t.g + warp * 16 * C::LDQ;
+  const T* sP_w = t.p + warp * 16 * C::LDP;
+
+  Accum<DK, F32> acc;
+  acc.zero();
+  for (int k0 = 0; k0 < Lk; k0 += BKV) {
+    const int kv_valid = min(BKV, Lk - k0);
+    __syncthreads();  // every warp is done with the previous sK / sV / sS
+    load_tile<DK, F32>(t.k, kb + k0 * kv_sl, kv_sl, kv_valid);
+    load_tile<DK, F32>(t.v, vb + k0 * kv_sl, kv_sl, kv_valid);
+    __syncthreads();
+    float pv[HALF_COLS], dp[HALF_COLS];
+    product_nt<DK, F32>(sQ_w, t.k, s_w, pv);
+#pragma unroll
+    for (int j = 0; j < HALF_COLS; ++j) {
+      const int c = half + 2 * j;
+      float p = 0.0f;
+      if (row_ok && c < kv_valid) {
+        // s = q.k + pos + mask, in that order (flash.py:219, :551;
+        // flash_v3.py:225)
+        const float s = pv[j] + pos_row[k0 + c] + mask_row[k0 + c];
+        p = expf(s - m_i) / l_i;
+      }
+      pv[j] = p;
+    }
+    product_nt<DK, F32>(sG_w, t.v, s_w, dp);
+#pragma unroll
+    for (int j = 0; j < HALF_COLS; ++j) {
+      const int c = half + 2 * j;
+      const float ds = pv[j] * (dp[j] - d_i);
+      s_row[c] = ds;
+      p_row[c] = from_float<T>(ds);
+    }
+    __syncwarp();
+    // dpos partial += ds: the warp's 16 rows, two columns a lane, so each
+    // row is one 256-byte stretch. The band is this block's alone.
+    for (int rr = 0; rr < 16; ++rr) {
+      const int qrow = q0 + warp * 16 + rr;
+      if (qrow >= Lq) break;
+      float* dst = part + (long long)qrow * Lk + k0;
+      const float* src = s_w + rr * C::LDS;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * lane + e;
+        if (c < kv_valid) dst[c] = first ? src[c] : dst[c] + src[c];
+      }
+    }
+    acc.add(sP_w, t.k);
+  }
+  acc.store(s_w, dq_b, dq_sl, q0 + warp * 16, Lq);
+}
+
+// K4: bf16 g, delta recomputed (and o, delta written out), bf16 dq.
 template <int DK>
 __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -191,40 +421,35 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(
     long long o_sh, long long o_sl, float* __restrict__ delta_out,
     float* __restrict__ dpos_part, int B, int H, int Lq, int Lk,
     int rows_per_group) {
-  using S = Smem<DK>;
+  using C = Cfg<DK, false>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + S::TILE;
-  bf16* sK = sG + S::TILE;
-  bf16* sV = sK + S::TILE;
-  bf16* sP = sV + S::TILE;
-  float* sS = reinterpret_cast<float*>(sP + S::P_ELEMS);
+  const TilesA<DK, false> t(smem_raw);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h = blockIdx.y, grp = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
   const int q_valid = min(BQ, Lq - q0);
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + r;
+  const int half = lane & 1;
+  const int row = warp * 16 + (lane >> 1);
   const int qi = q0 + row;
   const bool row_ok = qi < Lq;
   // rows past Lq read row 0's bias: finite, and p = 0 for them anyway
   const float* pos_row = pos + ((long long)h * Lq + (row_ok ? qi : 0)) * Lk;
-  float* s_row = sS + row * S::LDS;
-  float* s_w = sS + warp * 16 * S::LDS;
-  bf16* p_row = sP + row * S::LDP;
-  const bf16* sQ_w = sQ + warp * 16 * S::LDQ;
-  const bf16* sG_w = sG + warp * 16 * S::LDQ;
-  const bf16* sP_w = sP + warp * 16 * S::LDP;
+  float* s_row = t.s + row * C::LDS;
+  float* s_w = t.s + warp * 16 * C::LDS;
+  bf16* p_row = t.p + row * C::LDP;
+  const bf16* sQ_w = t.q + warp * 16 * C::LDQ;
+  const bf16* sP_w = t.p + warp * 16 * C::LDP;
   float* part = dpos_part + ((long long)grp * H + h) * Lq * Lk;
 
   const int b_begin = grp * rows_per_group;
   const int b_end = min(B, b_begin + rows_per_group);
   for (int b = b_begin; b < b_end; ++b) {
-    const bool first = b == b_begin;
     __syncthreads();  // every warp is done with the previous row's tiles
-    load_tile<DK>(sQ, q + b * q_sb + h * q_sh + q0 * q_sl, q_sl, q_valid);
-    load_tile<DK>(sG, g + b * g_sb + h * g_sh + q0 * g_sl, g_sl, q_valid);
+    load_tile<DK, false>(t.q, q + b * q_sb + h * q_sh + q0 * q_sl, q_sl,
+                         q_valid);
+    load_tile<DK, false>(t.g, g + b * g_sb + h * g_sh + q0 * g_sl, g_sl,
+                         q_valid);
     const float* mask_row = key_mask + (long long)b * Lk;
     const long long st = ((long long)b * H + h) * Lq + (row_ok ? qi : 0);
     const float m_i = m_in[st];
@@ -232,109 +457,88 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(
     const bf16* kb = k + b * kv_sb + h * kv_sh;
     const bf16* vb = v + b * kv_sb + h * kv_sh;
 
-    // Pass 1: o = bf16(p) . v with p already normalised, in fragments
-    // carried across the key tiles (no rescaling needed).
-    Acc acc[DK / 16];
-#pragma unroll
-    for (int n = 0; n < DK / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+    // o = bf16(p) . v with p already normalised, in fragments carried
+    // across the key tiles (no rescaling needed).
+    Accum<DK, false> acc;
+    acc.zero();
     for (int k0 = 0; k0 < Lk; k0 += BKV) {
       const int kv_valid = min(BKV, Lk - k0);
       __syncthreads();  // every warp is done with the previous sK / sV
-      load_tile<DK>(sK, kb + k0 * kv_sl, kv_sl, kv_valid);
-      load_tile<DK>(sV, vb + k0 * kv_sl, kv_sl, kv_valid);
+      load_tile<DK, false>(t.k, kb + k0 * kv_sl, kv_sl, kv_valid);
+      load_tile<DK, false>(t.v, vb + k0 * kv_sl, kv_sl, kv_valid);
       __syncthreads();
-      product_nt<DK>(sQ_w, sK, s_w);
-      __syncwarp();
+      float pv[HALF_COLS];
+      product_nt<DK, false>(sQ_w, t.k, s_w, pv);
 #pragma unroll
-      for (int j = 0; j < BKV / 2; ++j) {
+      for (int j = 0; j < HALF_COLS; ++j) {
         const int c = half + 2 * j;
         float p = 0.0f;
         if (row_ok && c < kv_valid) {
-          // s = q.k + pos + mask, in that order (flash_v3.py:225)
-          const float s = s_row[c] + pos_row[k0 + c] + mask_row[k0 + c];
+          const float s = pv[j] + pos_row[k0 + c] + mask_row[k0 + c];
           p = expf(s - m_i) / l_i;
         }
         p_row[c] = __float2bfloat16(p);
       }
       __syncwarp();
-      product_nn<DK>(sP_w, sV, acc);
+      acc.add(sP_w, t.v);
     }
-    // delta = sum g * o from the fp32 o; o itself is stored in bf16.
-#pragma unroll
-    for (int n = 0; n < DK / 16; ++n)
-      wmma::store_matrix_sync(s_w + n * 16, acc[n], S::LDS,
-                              wmma::mem_row_major);
-    __syncwarp();
+    // o stored in bf16; delta = sum g * o from the fp32 o the store leaves
+    // in the scratch
+    acc.store(s_w, out + b * o_sb + h * o_sh, o_sl, q0 + warp * 16, Lq);
     float d = 0.0f;
 #pragma unroll
     for (int j = 0; j < DK / 2; ++j) {
       const int c = half + 2 * j;
-      d += __bfloat162float(sG[row * S::LDQ + c]) * s_row[c];
+      d += __bfloat162float(t.g[row * C::LDQ + c]) * s_row[c];
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0 && row_ok) delta_out[st] = d;
-    for (int idx = lane; idx < 16 * (DK / 2); idx += 32) {
-      const int rr = idx / (DK / 2), c = (idx % (DK / 2)) * 2;
-      const int qrow = q0 + warp * 16 + rr;
-      if (qrow >= Lq) continue;
-      const float* s = s_w + rr * S::LDS + c;
-      *reinterpret_cast<__nv_bfloat162*>(out + b * o_sb + h * o_sh +
-                                         qrow * o_sl + c) =
-          __floats2bfloat162_rn(s[0], s[1]);
-    }
-    __syncwarp();
 
-    // Pass 2: dp = g . v^T, ds = p (dp - delta), dq += bf16(ds) . k, and
-    // ds into this group's dpos partial.
-#pragma unroll
-    for (int n = 0; n < DK / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-    for (int k0 = 0; k0 < Lk; k0 += BKV) {
-      const int kv_valid = min(BKV, Lk - k0);
-      __syncthreads();
-      load_tile<DK>(sK, kb + k0 * kv_sl, kv_sl, kv_valid);
-      load_tile<DK>(sV, vb + k0 * kv_sl, kv_sl, kv_valid);
-      __syncthreads();
-      product_nt<DK>(sQ_w, sK, s_w);
-      __syncwarp();
-      float pv[BKV / 2];
-#pragma unroll
-      for (int j = 0; j < BKV / 2; ++j) {
-        const int c = half + 2 * j;
-        float p = 0.0f;
-        if (row_ok && c < kv_valid) {
-          const float s = s_row[c] + pos_row[k0 + c] + mask_row[k0 + c];
-          p = expf(s - m_i) / l_i;
-        }
-        pv[j] = p;
-      }
-      __syncwarp();  // scores read; the scratch now takes dp
-      product_nt<DK>(sG_w, sV, s_w);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < BKV / 2; ++j) {
-        const int c = half + 2 * j;
-        const float ds = pv[j] * (s_row[c] - d);
-        s_row[c] = ds;
-        p_row[c] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      // dpos partial += ds: the warp's 16 rows, two columns a lane, so
-      // each row is one 256-byte stretch. The band is this block's alone.
-      for (int rr = 0; rr < 16; ++rr) {
-        const int qrow = q0 + warp * 16 + rr;
-        if (qrow >= Lq) break;
-        float* dst = part + (long long)qrow * Lk + k0;
-        const float* src = s_w + rr * S::LDS;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 2 * lane + e;
-          if (c < kv_valid) dst[c] = first ? src[c] : dst[c] + src[c];
-        }
-      }
-      product_nn<DK>(sP_w, sK, acc);
-    }
-    store_rows<DK>(acc, s_w, dq + b * dq_sb + h * dq_sh, dq_sl,
-                   q0 + warp * 16, Lq);
+    dq_sweep<DK, false>(t, kb, vb, kv_sl, pos_row, mask_row, m_i, l_i, d,
+                        part, b == b_begin, dq + b * dq_sb + h * dq_sh, dq_sl,
+                        q0, Lq, Lk);
+  }
+}
+
+// K2a / K2b: fp32 g, delta given (dcap), fp32 dq contiguous (B, H, Lq, DK).
+template <int DK, bool F32>
+__global__ void __launch_bounds__(THREADS) core_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, long long q_sb, long long q_sh,
+    long long q_sl, long long kv_sb, long long kv_sh, long long kv_sl,
+    const float* __restrict__ g, long long g_sb, long long g_sh,
+    long long g_sl, const float* __restrict__ pos,
+    const float* __restrict__ key_mask, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ dcap,
+    float* __restrict__ dq, float* __restrict__ dpos_part, int B, int H,
+    int Lq, int Lk, int rows_per_group) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const TilesA<DK, F32> t(smem_raw);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.y, grp = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int q_valid = min(BQ, Lq - q0);
+  const int qi = q0 + warp * 16 + (lane >> 1);
+  const bool row_ok = qi < Lq;
+  // rows past Lq read row 0's bias: finite, and p = 0 for them anyway
+  const float* pos_row = pos + ((long long)h * Lq + (row_ok ? qi : 0)) * Lk;
+  float* part = dpos_part + ((long long)grp * H + h) * Lq * Lk;
+
+  const int b_begin = grp * rows_per_group;
+  const int b_end = min(B, b_begin + rows_per_group);
+  for (int b = b_begin; b < b_end; ++b) {
+    __syncthreads();  // every warp is done with the previous row's tiles
+    load_tile<DK, F32>(t.q, q + b * q_sb + h * q_sh + q0 * q_sl, q_sl,
+                       q_valid);
+    load_tile<DK, F32>(t.g, g + b * g_sb + h * g_sh + q0 * g_sl, g_sl,
+                       q_valid);
+    const long long st = ((long long)b * H + h) * Lq + (row_ok ? qi : 0);
+    dq_sweep<DK, F32>(t, k + b * kv_sb + h * kv_sh, v + b * kv_sb + h * kv_sh,
+                      kv_sl, pos_row, key_mask + (long long)b * Lk, m_in[st],
+                      l_in[st], dcap[st], part, b == b_begin,
+                      dq + ((long long)b * H + h) * Lq * DK, (long long)DK,
+                      q0, Lq, Lk);
   }
 }
 
@@ -342,27 +546,30 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(
 // B: dk and dv
 // ---------------------------------------------------------------------------
 
-template <int DK>
+// g of type GT (bf16 for K4, fp32 for K2a / K2b); delta per query row given;
+// dk and dv of type OT through (batch, head, row) strides.
+template <int DK, bool F32, typename GT, typename OT>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, long long q_sb, long long q_sh,
     long long q_sl, long long kv_sb, long long kv_sh, long long kv_sl,
-    const bf16* __restrict__ g, long long g_sb, long long g_sh,
-    long long g_sl, const float* __restrict__ pos,
-    const float* __restrict__ key_mask, const float* __restrict__ m_in,
-    const float* __restrict__ l_in, const float* __restrict__ delta_in,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, long long dkv_sb,
-    long long dkv_sh, long long dkv_sl, int H, int Lq, int Lk) {
-  using S = Smem<DK>;
+    const GT* __restrict__ g, long long g_sb, long long g_sh, long long g_sl,
+    const float* __restrict__ pos, const float* __restrict__ key_mask,
+    const float* __restrict__ m_in, const float* __restrict__ l_in,
+    const float* __restrict__ delta, OT* __restrict__ dk,
+    OT* __restrict__ dv, long long dkv_sb, long long dkv_sh,
+    long long dkv_sl, int H, int Lq, int Lk) {
+  using C = Cfg<DK, F32>;
+  using T = typename C::T;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + S::TILE;
-  bf16* sQ = sV + S::TILE;
-  bf16* sG = sQ + S::TILE;
-  bf16* sPT = sG + S::TILE;     // bf16(p)^T: keys x queries
-  bf16* sDT = sPT + S::P_ELEMS;  // bf16(ds)^T
-  float* sS = reinterpret_cast<float*>(sDT + S::P_ELEMS);
-  float* sPos = sS + S::S_ELEMS;  // pos tile, queries x keys
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + C::TILE;
+  T* sQ = sV + C::TILE;
+  T* sG = sQ + C::TILE;
+  T* sPT = sG + C::TILE;      // p^T: keys x queries
+  T* sDT = sPT + C::P_ELEMS;  // ds^T
+  float* sS = reinterpret_cast<float*>(sDT + C::P_ELEMS);
+  float* sPos = sS + C::S_ELEMS;  // pos tile, queries x keys
   float* sM = sPos + BQ * LDPOS;
   float* sL = sM + BQ;
   float* sD = sL + BQ;
@@ -375,26 +582,26 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(
   const int krow = warp * 16 + r;  // this lane pair's key within the tile
   const bool key_ok = krow < kv_valid;
   const float mask_j = key_ok ? key_mask[(long long)b * Lk + k0 + krow] : 0.f;
-  float* s_row = sS + krow * S::LDS;
-  float* s_w = sS + warp * 16 * S::LDS;
-  bf16* pt_row = sPT + krow * S::LDP;
-  bf16* dt_row = sDT + krow * S::LDP;
+  float* s_w = sS + warp * 16 * C::LDS;
+  T* pt_row = sPT + krow * C::LDP;
+  T* dt_row = sDT + krow * C::LDP;
   const long long st0 = ((long long)b * H + h) * Lq;
 
-  load_tile<DK>(sK, k + b * kv_sb + h * kv_sh + k0 * kv_sl, kv_sl, kv_valid);
-  load_tile<DK>(sV, v + b * kv_sb + h * kv_sh + k0 * kv_sl, kv_sl, kv_valid);
+  load_tile<DK, F32>(sK, k + b * kv_sb + h * kv_sh + k0 * kv_sl, kv_sl,
+                     kv_valid);
+  load_tile<DK, F32>(sV, v + b * kv_sb + h * kv_sh + k0 * kv_sl, kv_sl,
+                     kv_valid);
 
-  Acc dv_acc[DK / 16], dk_acc[DK / 16];
-#pragma unroll
-  for (int n = 0; n < DK / 16; ++n) {
-    wmma::fill_fragment(dv_acc[n], 0.0f);
-    wmma::fill_fragment(dk_acc[n], 0.0f);
-  }
+  Accum<DK, F32> dv_acc, dk_acc;
+  dv_acc.zero();
+  dk_acc.zero();
   for (int q0 = 0; q0 < Lq; q0 += BQ) {
     const int q_valid = min(BQ, Lq - q0);
     __syncthreads();  // every warp is done with the previous query tile
-    load_tile<DK>(sQ, q + b * q_sb + h * q_sh + q0 * q_sl, q_sl, q_valid);
-    load_tile<DK>(sG, g + b * g_sb + h * g_sh + q0 * g_sl, g_sl, q_valid);
+    load_tile<DK, F32>(sQ, q + b * q_sb + h * q_sh + q0 * q_sl, q_sl,
+                       q_valid);
+    load_tile<DK, F32>(sG, g + b * g_sb + h * g_sh + q0 * g_sl, g_sl,
+                       q_valid);
     for (int idx = threadIdx.x; idx < BQ * BKV; idx += THREADS) {
       const int i = idx / BKV, j = idx % BKV;
       float val = 0.0f;
@@ -407,41 +614,38 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(
       const bool ok = i < q_valid;
       sM[i] = ok ? m_in[st0 + q0 + i] : 0.0f;
       sL[i] = ok ? l_in[st0 + q0 + i] : 1.0f;
-      sD[i] = ok ? delta_in[st0 + q0 + i] : 0.0f;
+      sD[i] = ok ? delta[st0 + q0 + i] : 0.0f;
     }
     __syncthreads();
 
     // S^T (this warp's 16 keys x 64 queries) = K_w . Q^T
-    product_nt<DK>(sK + warp * 16 * S::LDQ, sQ, s_w);
-    __syncwarp();
-    float pv[BQ / 2];
+    float pv[HALF_COLS], dpt[HALF_COLS];
+    product_nt<DK, F32>(sK + warp * 16 * C::LDQ, sQ, s_w, pv);
 #pragma unroll
-    for (int j = 0; j < BQ / 2; ++j) {
+    for (int j = 0; j < HALF_COLS; ++j) {
       const int c = half + 2 * j;  // query within the tile
       float p = 0.0f;
       if (key_ok && c < q_valid) {
-        const float s = s_row[c] + sPos[c * LDPOS + krow] + mask_j;
+        const float s = pv[j] + sPos[c * LDPOS + krow] + mask_j;
         p = expf(s - sM[c]) / sL[c];
       }
       pv[j] = p;
-      pt_row[c] = __float2bfloat16(p);
+      pt_row[c] = from_float<T>(p);
     }
-    __syncwarp();
     // dP^T (16 keys x 64 queries) = V_w . G^T
-    product_nt<DK>(sV + warp * 16 * S::LDQ, sG, s_w);
-    __syncwarp();
+    product_nt<DK, F32>(sV + warp * 16 * C::LDQ, sG, s_w, dpt);
 #pragma unroll
-    for (int j = 0; j < BQ / 2; ++j) {
+    for (int j = 0; j < HALF_COLS; ++j) {
       const int c = half + 2 * j;
-      dt_row[c] = __float2bfloat16(pv[j] * (s_row[c] - sD[c]));
+      dt_row[c] = from_float<T>(pv[j] * (dpt[j] - sD[c]));
     }
     __syncwarp();
-    product_nn<DK>(sPT + warp * 16 * S::LDP, sG, dv_acc);
-    product_nn<DK>(sDT + warp * 16 * S::LDP, sQ, dk_acc);
+    dv_acc.add(sPT + warp * 16 * C::LDP, sG);
+    dk_acc.add(sDT + warp * 16 * C::LDP, sQ);
   }
   const long long base = b * dkv_sb + h * dkv_sh + (long long)k0 * dkv_sl;
-  store_rows<DK>(dv_acc, s_w, dv + base, dkv_sl, warp * 16, kv_valid);
-  store_rows<DK>(dk_acc, s_w, dk + base, dkv_sl, warp * 16, kv_valid);
+  dv_acc.store(s_w, dv + base, dkv_sl, warp * 16, kv_valid);
+  dk_acc.store(s_w, dk + base, dkv_sl, warp * 16, kv_valid);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,28 +663,44 @@ __global__ void dpos_reduce_kernel(const float* __restrict__ part,
   }
 }
 
+// Kernels A and B use more than 48 KB of dynamic shared memory: opt in.
+template <typename KernelA, typename KernelB>
+cudaError_t allow_smem(KernelA ka, int bytes_a, KernelB kb, int bytes_b) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ka, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_a);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kb, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_b);
+}
+
+int launch_dpos_reduce(const void* dpos_part, void* dpos, int H, int Lq,
+                       int Lk, int groups, cudaStream_t stream) {
+  const long long n = (long long)H * Lq * Lk;
+  const long long want = (n + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  dpos_reduce_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(dpos_part), static_cast<float*>(dpos), n,
+      groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DK>
-int launch(const void* q, const void* k, const void* v, long long q_sb,
-           long long q_sh, long long q_sl, long long kv_sb, long long kv_sh,
-           long long kv_sl, const void* g, long long g_sb, long long g_sh,
-           long long g_sl, const void* pos, const void* key_mask,
-           const void* m, const void* l, void* dq, long long dq_sb,
-           long long dq_sh, long long dq_sl, void* dk, void* dv,
-           long long dkv_sb, long long dkv_sh, long long dkv_sl, void* out,
-           long long o_sb, long long o_sh, long long o_sl, void* delta,
-           void* dpos_part, void* dpos, int B, int H, int Lq, int Lk,
-           int rows_per_group, cudaStream_t stream) {
+int launch_k4(const void* q, const void* k, const void* v, long long q_sb,
+              long long q_sh, long long q_sl, long long kv_sb,
+              long long kv_sh, long long kv_sl, const void* g, long long g_sb,
+              long long g_sh, long long g_sl, const void* pos,
+              const void* key_mask, const void* m, const void* l, void* dq,
+              long long dq_sb, long long dq_sh, long long dq_sl, void* dk,
+              void* dv, long long dkv_sb, long long dkv_sh, long long dkv_sl,
+              void* out, long long o_sb, long long o_sh, long long o_sl,
+              void* delta, void* dpos_part, void* dpos, int B, int H, int Lq,
+              int Lk, int rows_per_group, cudaStream_t stream) {
+  using C = Cfg<DK, false>;
   const int groups = (B + rows_per_group - 1) / rows_per_group;
   if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto ka = bwd_dq_kernel<DK>;
-  auto kb = bwd_dkdv_kernel<DK>;
-  constexpr int bytes_a = Smem<DK>::BYTES_A;  // above 48 KB: opt in
-  constexpr int bytes_b = Smem<DK>::BYTES_B;
-  cudaError_t err = cudaFuncSetAttribute(
-      ka, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes_b);
+  auto kb = bwd_dkdv_kernel<DK, false, bf16, bf16>;
+  cudaError_t err = allow_smem(ka, C::BYTES_A, kb, C::BYTES_B);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const bf16* q_ = static_cast<const bf16*>(q);
@@ -494,7 +714,7 @@ int launch(const void* q, const void* k, const void* v, long long q_sb,
   float* delta_ = static_cast<float*>(delta);
 
   dim3 grid_a((Lq + BQ - 1) / BQ, H, groups);
-  ka<<<grid_a, THREADS, bytes_a, stream>>>(
+  ka<<<grid_a, THREADS, C::BYTES_A, stream>>>(
       q_, k_, v_, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g_, g_sb, g_sh, g_sl,
       pos_, mask_, m_, l_, static_cast<bf16*>(dq), dq_sb, dq_sh, dq_sl,
       static_cast<bf16*>(out), o_sb, o_sh, o_sl, delta_,
@@ -503,32 +723,83 @@ int launch(const void* q, const void* k, const void* v, long long q_sb,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   dim3 grid_b((Lk + BKV - 1) / BKV, H, B);
-  kb<<<grid_b, THREADS, bytes_b, stream>>>(
+  kb<<<grid_b, THREADS, C::BYTES_B, stream>>>(
       q_, k_, v_, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g_, g_sb, g_sh, g_sl,
       pos_, mask_, m_, l_, delta_, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dkv_sb, dkv_sh, dkv_sl, H, Lq, Lk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_dpos_reduce(dpos_part, dpos, H, Lq, Lk, groups, stream);
+}
 
-  const long long n = (long long)H * Lq * Lk;
-  const long long want = (n + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  dpos_reduce_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(dpos_part), static_cast<float*>(dpos), n,
-      groups);
-  return static_cast<int>(cudaGetLastError());
+template <int DK, bool F32>
+int launch_core(const void* q, const void* k, const void* v, long long q_sb,
+                long long q_sh, long long q_sl, long long kv_sb,
+                long long kv_sh, long long kv_sl, const void* g,
+                long long g_sb, long long g_sh, long long g_sl,
+                const void* pos, const void* key_mask, const void* m,
+                const void* l, const void* dcap, void* dq, void* dk, void* dv,
+                void* dpos_part, void* dpos, int B, int H, int Lq, int Lk,
+                int rows_per_group, cudaStream_t stream) {
+  using C = Cfg<DK, F32>;
+  const int groups = (B + rows_per_group - 1) / rows_per_group;
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto ka = core_bwd_dq_kernel<DK, F32>;
+  auto kb = bwd_dkdv_kernel<DK, F32, float, float>;
+  cudaError_t err = allow_smem(ka, C::BYTES_A, kb, C::BYTES_B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const float* g_ = static_cast<const float*>(g);
+  const float* pos_ = static_cast<const float*>(pos);
+  const float* mask_ = static_cast<const float*>(key_mask);
+  const float* m_ = static_cast<const float*>(m);
+  const float* l_ = static_cast<const float*>(l);
+  const float* d_ = static_cast<const float*>(dcap);
+
+  dim3 grid_a((Lq + BQ - 1) / BQ, H, groups);
+  ka<<<grid_a, THREADS, C::BYTES_A, stream>>>(
+      q_, k_, v_, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g_, g_sb, g_sh, g_sl,
+      pos_, mask_, m_, l_, d_, static_cast<float*>(dq),
+      static_cast<float*>(dpos_part), B, H, Lq, Lk, rows_per_group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // dk, dv contiguous (B, H, Lk, DK)
+  dim3 grid_b((Lk + BKV - 1) / BKV, H, B);
+  kb<<<grid_b, THREADS, C::BYTES_B, stream>>>(
+      q_, k_, v_, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g_, g_sb, g_sh, g_sl,
+      pos_, mask_, m_, l_, d_, static_cast<float*>(dk),
+      static_cast<float*>(dv), (long long)H * Lk * DK, (long long)Lk * DK,
+      (long long)DK, H, Lq, Lk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_dpos_reduce(dpos_part, dpos, H, Lq, Lk, groups, stream);
+}
+
+int check_args(int device, int B, int H, int Lq, int Lk, int rows_per_group) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || H > 65535 ||
+      rows_per_group <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Strides are in elements; the head
-// dimension is contiguous everywhere. q (B, H, Lq, dk); k, v (B, H, Lk, dk)
-// sharing strides; g (B, H, Lq, dk); pos (H, Lq, Lk) and key_mask (B, Lk)
-// fp32 contiguous; m, l (B, H, Lq) fp32. Outputs: dq, dk/dv (sharing
-// strides) and out in bf16; delta (B, H, Lq) fp32; dpos (H, Lq, Lk) fp32.
-// dpos_part is fp32 scratch of ceil(B / rows_per_group) * H * Lq * Lk.
-// Launches three kernels on `stream` and returns cudaGetLastError() after
-// them (0 = success); allocates nothing.
+// C entry points, bound with ctypes. Strides are in elements; the head
+// dimension is contiguous everywhere. Each launches three kernels on
+// `stream` and returns cudaGetLastError() after them (0 = success);
+// neither allocates. dpos_part is fp32 scratch of
+// ceil(B / rows_per_group) * H * Lq * Lk.
+
+// K4's core: q (B, H, Lq, dk); k, v (B, H, Lk, dk) sharing strides; g
+// (B, H, Lq, dk); all bf16. pos (H, Lq, Lk) and key_mask (B, Lk) fp32
+// contiguous; m, l (B, H, Lq) fp32. Outputs: dq, dk/dv (sharing strides)
+// and out in bf16; delta (B, H, Lq) fp32; dpos (H, Lq, Lk) fp32.
 extern "C" int pnt_t5_attention_bwd(
     const void* q, const void* k, const void* v, long long q_sb,
     long long q_sh, long long q_sl, long long kv_sb, long long kv_sh,
@@ -540,19 +811,46 @@ extern "C" int pnt_t5_attention_bwd(
     long long o_sl, void* delta, void* dpos_part, void* dpos, int B, int H,
     int Lq, int Lk, int dk_dim, int rows_per_group, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || H > 65535 ||
-      rows_per_group <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = check_args(device, B, H, Lq, Lk, rows_per_group);
+  if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PNT_ARGS                                                            \
   q, k, v, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g, g_sb, g_sh, g_sl, pos, \
       key_mask, m, l, dq, dq_sb, dq_sh, dq_sl, dk, dv, dkv_sb, dkv_sh,      \
       dkv_sl, out, o_sb, o_sh, o_sl, delta, dpos_part, dpos, B, H, Lq, Lk,  \
       rows_per_group, s
-  if (dk_dim == 64) return launch<64>(PNT_ARGS);
-  if (dk_dim == 128) return launch<128>(PNT_ARGS);
+  if (dk_dim == 64) return launch_k4<64>(PNT_ARGS);
+  if (dk_dim == 128) return launch_k4<128>(PNT_ARGS);
+#undef PNT_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2a / K2b: q (B, H, Lq, dk); k, v (B, H, Lk, dk) bf16 sharing strides; g
+// (B, H, Lq, dk) fp32 with strides that are multiples of 4; pos (H, Lq, Lk),
+// key_mask (B, Lk), m, l, dcap (B, H, Lq) fp32 contiguous. Outputs, fp32
+// contiguous: dq (B, H, Lq, dk), dk and dv (B, H, Lk, dk), dpos (H, Lq, Lk).
+// fp32_operands = 1 runs K2a's numerics, 0 K2b's.
+extern "C" int pnt_t5_attention_core_bwd(
+    const void* q, const void* k, const void* v, long long q_sb,
+    long long q_sh, long long q_sl, long long kv_sb, long long kv_sh,
+    long long kv_sl, const void* g, long long g_sb, long long g_sh,
+    long long g_sl, const void* pos, const void* key_mask, const void* m,
+    const void* l, const void* dcap, void* dq, void* dk, void* dv,
+    void* dpos_part, void* dpos, int B, int H, int Lq, int Lk, int dk_dim,
+    int rows_per_group, int fp32_operands, int device, void* stream) {
+  const int rc = check_args(device, B, H, Lq, Lk, rows_per_group);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PNT_ARGS                                                            \
+  q, k, v, q_sb, q_sh, q_sl, kv_sb, kv_sh, kv_sl, g, g_sb, g_sh, g_sl, pos, \
+      key_mask, m, l, dcap, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk,      \
+      rows_per_group, s
+  if (dk_dim == 64)
+    return fp32_operands ? launch_core<64, true>(PNT_ARGS)
+                         : launch_core<64, false>(PNT_ARGS);
+  if (dk_dim == 128)
+    return fp32_operands ? launch_core<128, true>(PNT_ARGS)
+                         : launch_core<128, false>(PNT_ARGS);
 #undef PNT_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -53,6 +53,14 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
         _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # q, k, v, q strides, kv strides, g, g strides, pos, key_mask, m, l,
+    # dcap, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk, dk, rows_per_group,
+    # fp32_operands, device, stream
+    "pnt_t5_attention_core_bwd": (
+        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 

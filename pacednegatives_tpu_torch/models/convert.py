@@ -57,9 +57,12 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu") -> dict:
 
 
 def config_from_jax(cfg) -> T5Config:
-    """A port ``T5Config`` with the forward-relevant fields of a JAX
-    ``T5Config`` (read by attribute, so no JAX import is needed).
-    ``flash_v3`` carries over; the TPU-only knobs do not."""
+    """A port ``T5Config`` with the fields of a JAX ``T5Config`` that the
+    port has (read by attribute, so no JAX import is needed): among them
+    ``attention_impl``, ``attention_chunk``, ``flash_kernel``,
+    ``attn_residual_dtype`` and ``flash_v3``. The TPU-only knobs
+    (``scan_layers``, ``packed_heads``, ``packed_lanes``, ``flash_q_block``,
+    ``flash_v3_interpret``) do not carry over."""
     kwargs = {f: getattr(cfg, f) for f in T5Config.__dataclass_fields__
               if f != "dtype"}
     kwargs["dtype"] = _TORCH_DTYPES[np.dtype(cfg.dtype).name]

@@ -11,16 +11,22 @@ training by autograd: ``encode`` and ``decode`` over the ``block_i`` or
 stacked ``blocks`` layout, with plain or fused (``qkv`` / ``kv``) attention
 leaves, and the teacher-forced ``forward_logits``. Numerics follow the JAX
 package: activations in ``cfg.dtype``, RMSNorm and softmax in fp32, scores
-accumulated in fp32, ``NEG_INF`` added (not -inf) for masks. Encoder
-self-attention goes through the fused-block kernels (forward K3, backward
-K4) when ``cfg.flash_v3`` is set and the shape is eligible, routed exactly
-as ``attention`` in the JAX package routes it (t5.py:400-533).
+accumulated in fp32, ``NEG_INF`` added (not -inf) for masks. Attention is
+routed exactly as ``attention`` in the JAX package routes it
+(t5.py:400-625): encoder self-attention through the fused-block kernels
+(forward K3, backward K4) when ``cfg.flash_v3`` is set and the shape is
+eligible; otherwise dense, or ``attention_impl="chunked"``: online softmax
+over key chunks with a flash-style backward (``_FlashCore``, the
+``custom_vjp`` of t5.py:929-1121), whose 128-aligned shapes on CUDA take
+the attention-core kernels with ``flash_kernel`` (forward K1, backward K2b
+or K2a, chosen by ``flash_v2_eligible``).
 
 Gradients reach ``rel_bias`` through ``compute_position_bias`` (a gather,
 so autograd scatters the bias cotangent back into the table) and, on the
-fused path, through the kernel's dpos. The JAX step gets the same gradient
-by precomputing the biases once per step and folding their vjp back into
-the table (train/step.py:165-178, 301-305); autograd needs no such step.
+kernel paths, through the kernels' dpos. The train step computes the
+biases once per step (``position_bias_from_tables``), passes them in
+through ``pos_biases`` and folds their accumulated cotangent back into the
+tables, as the JAX step does (train/step.py:165-178, 301-305).
 """
 
 from __future__ import annotations
@@ -30,8 +36,15 @@ import math
 import warnings
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from pacednegatives_tpu_torch.ops.flash import (
+    flash_attention_backward,
+    flash_attention_backward_v2,
+    flash_attention_forward,
+    flash_v2_eligible,
+)
 from pacednegatives_tpu_torch.ops.flash_v3 import (
     flash_v3_eligible,
     fused_self_attention,
@@ -43,11 +56,11 @@ NEG_INF = -1e9  # additive mask value, applied in fp32 (t5.py:33)
 @dataclasses.dataclass(frozen=True)
 class T5Config:
     """The fields of the JAX ``T5Config`` that the port reads. Dropout
-    (``dropout_rate`` with ``deterministic=False``), the chunked attention
-    path and ``flash_kernel`` are carried so that a config can be converted
-    and checked, and raise ``NotImplementedError`` where they would act
-    (ROADMAP.md, the next training slice). The TPU-only knobs (scan, packed
-    heads/lanes, interpret mode) are not carried over; see ROADMAP.md."""
+    (``dropout_rate`` with ``deterministic=False``) is carried so that a
+    config can be converted and checked, and raises
+    ``NotImplementedError`` where it would act (ROADMAP.md slice T2). The
+    TPU-only knobs (scan, packed heads/lanes, ``flash_q_block``, interpret
+    mode) are not carried over; see ROADMAP.md."""
 
     vocab_size: int = 32128
     d_model: int = 512
@@ -69,9 +82,13 @@ class T5Config:
     # only the "full" policy is ported (the dots policies: ROADMAP.md)
     remat: bool = False
     remat_policy: str = "full"
-    # "dense" only; "chunked" is not ported yet (ROADMAP.md, queue 1)
+    # "dense" materialises (B, H, Lq, Lk) scores; "chunked" is exact online
+    # softmax over key chunks of attention_chunk with a flash-style
+    # backward that recomputes the probabilities from (m, l)
     attention_impl: str = "dense"
-    # the Mosaic attention-core kernels of the chunked path: not ported yet
+    attention_chunk: int = 128
+    # with "chunked": 128-aligned shapes of dk 64 / 128 on CUDA run the
+    # attention-core kernels (K1 forward, K2b or K2a backward)
     flash_kernel: bool = False
     # train/step.py concatenates q|k|v (self) and k|v (cross) once per step
     # (fuse_attention_params) and splits the gradients back
@@ -79,6 +96,9 @@ class T5Config:
     # route eligible encoder self-attention through the fused block
     # (ops/flash_v3.py): CUDA kernels on the card, plain versions on the CPU
     flash_v3: bool = False
+    # dtype of the chunked backward's saved attention output: it feeds only
+    # delta = sum(g * out), so "bf16" halves it at the cost of one rounding
+    attn_residual_dtype: str = "fp32"
 
     @staticmethod
     def small() -> "T5Config":
@@ -405,14 +425,6 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     H, dk = cfg.num_heads, cfg.d_kv
     dt = cfg.dtype
 
-    if cfg.attention_impl != "dense" or cfg.flash_kernel:
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r}, flash_kernel="
-            f"{cfg.flash_kernel} is not ported yet (ROADMAP.md slice T2: the "
-            "chunked path with its custom VJP and the K2a/K2b kernels); use "
-            "'dense', optionally with flash_v3=True"
-        )
-
     # flash_v3 routing, as t5.py:400-533: deterministic (always, here),
     # self-attention (x is kv), a lazy tuple bias, an eligible shape and a
     # shared bias of batch 1. Decoder self-attention (Lt = 1), cross-
@@ -458,12 +470,264 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
             k = heads(torch.matmul(kv, p["k"].to(dt)), Lk)
             v = heads(torch.matmul(kv, p["v"].to(dt)), Lk)
 
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores + _combine_bias(bias)
-    weights = torch.softmax(scores, dim=-1).to(dt)
-    out = torch.matmul(weights, v)  # (B, H, Lq, dk)
+    if cfg.attn_residual_dtype != "fp32" and cfg.attention_impl != "chunked":
+        # the residual lives in the chunked backward (t5.py:591-597)
+        raise ValueError(
+            "attn_residual_dtype='bf16' requires attention_impl='chunked' "
+            "(dense attention has no flash-style residual to reduce)"
+        )
+    if cfg.attention_impl == "chunked":
+        out = _chunked_attention(cfg, q, k, v, bias)
+    else:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores + _combine_bias(bias)
+        weights = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.matmul(weights, v)  # (B, H, Lq, dk)
     return torch.matmul(out.transpose(1, 2).reshape(B, Lq, H * dk),
                         p["o"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Chunked attention (t5.py:732-1121)
+# ---------------------------------------------------------------------------
+
+
+def _chunked_attention(cfg: T5Config, q, k, v, bias) -> torch.Tensor:
+    """Online-softmax attention over key chunks with a flash-style
+    backward. q/k/v (B, H, L, dk) head-major; returns (B, H, Lq, dk) in the
+    compute dtype. Keys are padded to a multiple of the chunk with NEG_INF
+    bias (t5.py:748-768)."""
+    B, H, Lq, dk = q.shape
+    Lk = k.shape[2]
+    C = min(cfg.attention_chunk, Lk)
+    shared, per_batch = bias if isinstance(bias, tuple) else (bias, None)
+    dev = q.device
+
+    pad = (-Lk) % C
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        if shared is not None:
+            shared = F.pad(shared, (0, pad), value=NEG_INF)
+        if per_batch is not None:
+            per_batch = F.pad(per_batch, (0, pad), value=NEG_INF)
+        elif shared is None:
+            # no masks at all: mask the padded keys explicitly
+            per_batch = torch.where(
+                torch.arange(Lk + pad, device=dev) < Lk, 0.0, NEG_INF
+            ).float()[None, None, None, :]
+    if shared is None:
+        shared = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=dev)
+    if per_batch is None:
+        per_batch = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=dev)
+
+    impl = ("kernel" if cfg.flash_kernel
+            and pallas_flash_eligible(Lq, k.shape[2], dk, dev) else "plain")
+    if cfg.attn_residual_dtype not in ("fp32", "bf16"):
+        raise ValueError(
+            f"attn_residual_dtype must be 'fp32' or 'bf16', "
+            f"got {cfg.attn_residual_dtype!r}"
+        )
+    out = flash_core(C, impl, cfg.attn_residual_dtype, q, k, v, shared,
+                     per_batch)
+    return out.to(cfg.dtype)
+
+
+def _unbroadcast(x: torch.Tensor, shape) -> torch.Tensor:
+    """Sum-reduce x back to a broadcastable input shape."""
+    axes = tuple(i for i, (a, b) in enumerate(zip(x.shape, shape))
+                 if b == 1 and a != 1)
+    return x.sum(dim=axes, keepdim=True) if axes else x
+
+
+def _bias_chunk(src: torch.Tensor, j: int, C: int) -> torch.Tensor:
+    """Chunk j along the key axis; a size-1 (broadcast) axis passes
+    through."""
+    if src.shape[3] == 1:
+        return src
+    return src[..., j * C:(j + 1) * C]
+
+
+def _flash_forward(C, q, k, v, shared, per_batch):
+    """The plain route's forward: (out (B, H, Lq, dk) fp32, (m, l, out)).
+    One softmax when the keys are one chunk, else the online-softmax loop
+    over chunks (t5.py:798-845)."""
+    B, H, Lq, dk = q.shape
+    n_chunks = k.shape[2] // C
+    qf = q.float()
+
+    if n_chunks == 1:
+        s = torch.matmul(qf, k.float().transpose(-1, -2))
+        s = s + shared + per_batch  # dummies are zeros (1, 1, 1, 1)
+        m = s.amax(dim=-1)
+        p_ = torch.exp(s - m[..., None])
+        l = p_.sum(dim=-1).clamp_min(1e-30)
+        out = torch.matmul(p_.to(v.dtype).float(), v.float()) / l[..., None]
+        return out, (m, l, out)
+
+    m = torch.full((B, H, Lq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Lq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Lq, dk), dtype=torch.float32, device=q.device)
+    for j in range(n_chunks):
+        k_j = k[:, :, j * C:(j + 1) * C]
+        v_j = v[:, :, j * C:(j + 1) * C]
+        s = torch.matmul(qf, k_j.float().transpose(-1, -2))
+        s = s + _bias_chunk(shared, j, C) + _bias_chunk(per_batch, j, C)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p_ = torch.exp(s - m_new[..., None])
+        l = l * corr + p_.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(p_.to(v_j.dtype).float(),
+                                                   v_j.float())
+        m = m_new
+    l = l.clamp_min(1e-30)
+    out = acc / l[..., None]
+    return out, (m, l, out)
+
+
+def _flash_backward(C, res, g, need_shared, need_per_batch):
+    """The plain route's backward (t5.py:991-1118): probabilities recomputed
+    per chunk from (m, l); products take compute-dtype operands with fp32
+    accumulation, the softmax algebra stays fp32. Bias gradients only where
+    asked for."""
+    q, k, v, shared, per_batch, m, l, out_res = res
+    B, H, Lq, dk = q.shape
+    Lk = k.shape[2]
+    n_chunks = Lk // C
+    cdt = q.dtype
+    g32 = g.float()
+    # delta from the (possibly bf16) residual, accumulated in fp32
+    D = (g32 * out_res.float()).sum(dim=-1)
+    g_c = g32.to(cdt).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+
+    def zeros_like_bias(src):
+        return torch.zeros(src.shape, dtype=torch.float32, device=q.device)
+
+    dq = torch.zeros((B, H, Lq, dk), dtype=torch.float32, device=q.device)
+    dk_ = torch.empty((B, H, Lk, dk), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, H, Lk, dk), dtype=torch.float32, device=q.device)
+    dshared = zeros_like_bias(shared) if need_shared else None
+    dper = zeros_like_bias(per_batch) if need_per_batch else None
+    for j in range(n_chunks):
+        cols = slice(j * C, (j + 1) * C)
+        s = torch.matmul(qf, kf[:, :, cols].transpose(-1, -2))
+        s = s + _bias_chunk(shared, j, C) + _bias_chunk(per_batch, j, C)
+        p_ = torch.exp(s - m[..., None]) / l[..., None]  # (B, H, Lq, C)
+        dv[:, :, cols] = torch.matmul(p_.to(cdt).float().transpose(-1, -2),
+                                      g_c)
+        dp = torch.matmul(g_c, vf[:, :, cols].transpose(-1, -2))
+        ds = p_ * (dp - D[..., None])
+        ds_c = ds.to(cdt).float()
+        dq += torch.matmul(ds_c, kf[:, :, cols])
+        dk_[:, :, cols] = torch.matmul(ds_c.transpose(-1, -2), qf)
+        for acc, src in ((dshared, shared), (dper, per_batch)):
+            if acc is None:
+                continue
+            if src.shape[3] == 1:
+                acc += _unbroadcast(ds, src.shape)
+            else:
+                acc[..., cols] += _unbroadcast(ds, src.shape[:3] + (C,))
+    return (dq.to(q.dtype), dk_.to(k.dtype), dv.to(v.dtype),
+            None if dshared is None else dshared.to(shared.dtype),
+            None if dper is None else dper.to(per_batch.dtype))
+
+
+def pallas_flash_eligible(Lq: int, Lk_padded: int, dk: int, device) -> bool:
+    """Shape gate of the kernel route, the TPU's kept (t5.py:896-905):
+    128-aligned query and padded key lengths and dk 64 or 128. Where the
+    JAX gate asks for a TPU backend, this one asks for CUDA tensors (the
+    CUDA kernels would take any length; the gate stays the JAX package's so
+    that both run the same numerics on the same shapes)."""
+    return (Lq % 128 == 0 and Lk_padded % 128 == 0 and dk in (64, 128)
+            and torch.device(device).type == "cuda")
+
+
+def _kernel_biases(shared, per_batch, B, H, Lq, Lk):
+    """(pos (H, Lq, Lk), key_mask (B, Lk)), contiguous fp32, from the lazy
+    pair; zeros for a dummy (t5.py:866-875)."""
+    dev = shared.device
+    if shared.shape[3] == 1:
+        pos3 = torch.zeros((H, Lq, Lk), dtype=torch.float32, device=dev)
+    else:
+        pos3 = shared[0].expand(H, Lq, Lk).float().contiguous()
+    if per_batch.shape[3] == 1:
+        key_mask = torch.zeros((B, Lk), dtype=torch.float32, device=dev)
+    else:
+        key_mask = per_batch[:, 0, 0, :].expand(B, Lk).float().contiguous()
+    return pos3, key_mask
+
+
+def _pallas_forward(q, k, v, shared, per_batch):
+    """The kernel route's forward (t5.py:851-893): K1 with fp32 output, the
+    same contract as ``_flash_forward``. The JAX route picks K1b where
+    ``flash_v2_eligible`` and K1a elsewhere; both are one CUDA kernel."""
+    B, H, Lq, dk = q.shape
+    Lk = k.shape[2]
+    pos3, key_mask = _kernel_biases(shared, per_batch, B, H, Lq, Lk)
+    out, m, l = flash_attention_forward(q, k, v, pos3, key_mask,
+                                        torch.float32)
+    return out, (m, l, out)
+
+
+def _pallas_backward(res, g, need_shared):
+    """The kernel route's backward (t5.py:946-988): K2b where
+    ``flash_v2_eligible``, else K2a. The per-batch key mask gets no
+    gradient: it comes from integer attention masks and never requires
+    one."""
+    q, k, v, shared, per_batch, m, l, out_res = res
+    B, H, Lq, dk = q.shape
+    Lk = k.shape[2]
+    pos3, key_mask = _kernel_biases(shared, per_batch, B, H, Lq, Lk)
+    g32 = g.float().contiguous()
+    D = (g32 * out_res.float()).sum(dim=-1)  # (B, H, Lq)
+    bwd = (flash_attention_backward_v2 if flash_v2_eligible(H, Lq, Lk, dk)
+           else flash_attention_backward)
+    dq, dk_, dv, dpos = bwd(q, k, v, pos3, key_mask, m, l, D, g32)
+    dshared = None
+    if need_shared and shared.shape[3] != 1:
+        dshared = _unbroadcast(dpos[None], shared.shape).to(shared.dtype)
+    return dq.to(q.dtype), dk_.to(k.dtype), dv.to(v.dtype), dshared, None
+
+
+class _FlashCore(torch.autograd.Function):
+    """The chunked core with its flash-style backward: the port of the
+    ``custom_vjp`` ``_flash_core`` (t5.py:929-988, 1121). ``impl`` is
+    "plain" (t5.py's XLA route) or "kernel" (K1 forward, K2b / K2a
+    backward). Saves (q, k, v, biases, m, l, out), with out in
+    ``res_dtype``; returns out (B, H, Lq, dk) fp32."""
+
+    @staticmethod
+    def forward(ctx, C, impl, res_dtype, q, k, v, shared, per_batch):
+        if impl == "kernel":
+            out, (m, l, _) = _pallas_forward(q, k, v, shared, per_batch)
+        else:
+            out, (m, l, _) = _flash_forward(C, q, k, v, shared, per_batch)
+        # the residual feeds only delta = sum(g * out); (m, l) stay fp32
+        res = out.to(torch.bfloat16) if res_dtype == "bf16" else out
+        ctx.save_for_backward(q, k, v, shared, per_batch, m, l, res)
+        ctx.C, ctx.impl = C, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        res = ctx.saved_tensors
+        need_shared, need_per_batch = ctx.needs_input_grad[6:8]
+        if ctx.impl == "kernel":
+            grads = _pallas_backward(res, g, need_shared)
+        else:
+            grads = _flash_backward(ctx.C, res, g, need_shared,
+                                    need_per_batch)
+        return (None, None, None, *grads)
+
+
+def flash_core(C: int, impl: str, res_dtype: str, q, k, v, shared,
+               per_batch) -> torch.Tensor:
+    """``_FlashCore`` as a function: out (B, H, Lq, dk) fp32 of q/k/v
+    (B, H, L, dk) with keys a multiple of C long and the additive biases
+    ``shared`` and ``per_batch`` (4-D, broadcastable; (1, 1, 1, 1) zeros
+    for none)."""
+    return _FlashCore.apply(C, impl, res_dtype, q, k, v, shared, per_batch)
 
 
 def mlp(p: dict, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
@@ -498,12 +762,34 @@ def _causal_bias(L: int, device) -> torch.Tensor:
     return torch.where(causal, zero, neg)[None, None]
 
 
+def position_bias_from_tables(enc_rel_bias: torch.Tensor,
+                              dec_rel_bias: torch.Tensor, cfg: T5Config,
+                              l_enc: int, l_dec: int) -> dict:
+    """The (1, H, L, L) position biases of one step from the two (buckets,
+    H) tables (t5.py:1326-1346): {"enc", "dec_self"}, the decoder's with
+    the causal mask added. The train step computes them once and passes
+    them to every microbatch's ``forward_logits``."""
+    nb, md = cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
+    enc = compute_position_bias(enc_rel_bias, l_enc, l_enc, True, nb, md)
+    dec = compute_position_bias(dec_rel_bias, l_dec, l_dec, False, nb, md)
+    return {"enc": enc,
+            "dec_self": dec + _causal_bias(l_dec, dec_rel_bias.device)}
+
+
 # ---------------------------------------------------------------------------
 # Stacks
 # ---------------------------------------------------------------------------
 
 
 def _check_training_knobs(cfg: T5Config, deterministic: bool) -> None:
+    if not deterministic and cfg.attention_impl == "chunked":
+        # as t5.py:584-590: a dense fallback would materialise the scores
+        # chunking exists to avoid
+        raise ValueError(
+            "attention_impl='chunked' does not support attention-weight "
+            "dropout (training with dropout=True); use dense attention or "
+            "disable dropout."
+        )
     if not deterministic:
         raise NotImplementedError(
             "deterministic=False (dropout) is not ported yet (ROADMAP.md "
@@ -614,12 +900,17 @@ def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
 def forward_logits(params: dict, cfg: T5Config, input_ids: torch.Tensor,
                    labels: torch.Tensor,
                    attention_mask: torch.Tensor | None = None, *,
-                   deterministic: bool = True) -> torch.Tensor:
+                   deterministic: bool = True,
+                   pos_biases: dict | None = None) -> torch.Tensor:
     """Full seq2seq forward (t5.py:1580-1609): one teacher-forced pass,
-    (B, L) prompts and (B, Lt) labels -> (B, Lt, vocab) fp32 logits."""
+    (B, L) prompts and (B, Lt) labels -> (B, Lt, vocab) fp32 logits.
+    ``pos_biases``: precomputed {"enc", "dec_self"} from
+    ``position_bias_from_tables``."""
     if attention_mask is None:
         attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
     enc = encode(params, cfg, input_ids, attention_mask,
-                 deterministic=deterministic)
+                 deterministic=deterministic,
+                 pos_bias=pos_biases["enc"] if pos_biases else None)
     return decode(params, cfg, shift_right(labels, cfg), enc, attention_mask,
-                  deterministic=deterministic)
+                  deterministic=deterministic,
+                  self_pos_bias=pos_biases["dec_self"] if pos_biases else None)

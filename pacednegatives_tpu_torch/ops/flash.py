@@ -1,20 +1,28 @@
-"""T5 attention core (K1 forward, K4's backward core): the port of
-ops/flash.py's forward kernels and of the per-head core of ops/flash_v3.py's
-backward kernel.
+"""T5 attention core: the port of ops/flash.py's kernels (K1 forward, K2a /
+K2b backward) and of the per-head core of ops/flash_v3.py's backward (K4).
 
 Forward, per head: out = softmax(q . k^T + pos[h] + key_mask[b]) . v, with
 no 1/sqrt(dk) scaling, and the softmax statistics (m, l). It replaces
 ``flash_attention_forward`` (pacednegatives_tpu/ops/flash.py:94) and
 ``flash_attention_forward_v2`` (ops/flash.py:480) with one CUDA kernel,
 ``csrc/t5_attention_fwd.cu``, and is the core of the fused block (K3,
-ops/flash_v3.py).
+ops/flash_v3.py). ``flash_attention_forward_v2`` is the same function.
 
-Backward (``attention_backward``): from (m, l) and the output cotangent g,
-the recomputed out, dq, dk, dv and dpos = sum over the batch of ds, with the
-numerics of ``_v3_bwd_kernel`` (pacednegatives_tpu/ops/flash_v3.py:196-268),
-in ``csrc/t5_attention_bwd.cu``. It is the core of the fused block's
-backward (K4); q/k/v/g and the outputs are strided (B, H, L, dk) views, so
-the attention-core backward kernels (K2a/K2b) can call it too.
+Backward of the fused block (``attention_backward``): from (m, l) and the
+output cotangent g, the recomputed out, dq, dk, dv and dpos = sum over the
+batch of ds, with the numerics of ``_v3_bwd_kernel``
+(pacednegatives_tpu/ops/flash_v3.py:196-268), in
+``csrc/t5_attention_bwd.cu``. It is the core of the fused block's backward
+(K4); q/k/v/g and the outputs are strided (B, H, L, dk) views.
+
+Backward of the chunked path's kernel route (``flash_attention_backward``,
+K2a, and ``flash_attention_backward_v2``, K2b; ops/flash.py:316, 599): from
+(m, l), delta = sum g * out (``dcap``, given) and the fp32 cotangent g, the
+fp32 dq, dk, dv and dpos. K2a multiplies fp32 operands; K2b rounds p, g and
+ds to q's dtype as the products' operands. ``flash_v2_eligible`` chooses
+between them as the JAX package does. Both run in
+``csrc/t5_attention_bwd.cu``, K4's source, through its second entry point:
+they share its tiling, its dk/dv kernel and its dpos reduction.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors. Unlike the TPU kernels they take any
@@ -148,6 +156,10 @@ def flash_attention_forward(q, k, v, pos, key_mask, out_dtype=None, *,
 
 
 flash_attention_forward.launches = 0  # kernel launches; CPU route not counted
+
+# K1b (ops/flash.py:480) is the same kernel: the CUDA kernel holds no keys
+# resident, so the TPU's v1 / v2 split has no counterpart in the forward
+flash_attention_forward_v2 = flash_attention_forward
 
 
 # ---------------------------------------------------------------------------
@@ -292,3 +304,151 @@ def attention_backward(q, k, v, g, pos, key_mask, m, l, *, dq=None, dk=None,
 
 
 attention_backward.launches = 0  # kernel launches; CPU route not counted
+
+
+# ---------------------------------------------------------------------------
+# Backward of the chunked path's kernel route (K2a, K2b)
+# ---------------------------------------------------------------------------
+
+
+def flash_v2_eligible(H: int, Lq: int, Lk: int, dk: int) -> bool:
+    """The JAX package's choice between K2b and K2a (ops/flash.py:443-448):
+    128-aligned lengths, dk 64 or 128, and the TPU kernel's VMEM residents
+    (k + v, pos + dpos) within 48 MiB. Kept as it is so that both packages
+    run the same numerics on the same shapes."""
+    resident = H * Lk * dk * 2 * 2 + 2 * H * Lq * Lk * 4  # k+v, pos+dpos
+    return (
+        Lq % 128 == 0 and Lk % 128 == 0 and dk in (64, 128)
+        and resident <= 48 * 1024 * 1024
+    )
+
+
+def _probs(q, k, pos, key_mask, m, l):
+    """p = exp(s - m) / l in fp32, s = q . k^T + pos + key_mask."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s + pos[None].float() + key_mask[:, None, None, :].float()
+    return torch.exp(s - m[..., None]) / l[..., None]
+
+
+def flash_attention_backward_plain(q, k, v, pos, key_mask, m, l, dcap, g):
+    """Plain PyTorch version of ``flash_attention_backward`` (K2a), in the
+    arithmetic of the TPU kernels (flash.py:215-232, 277-298): every
+    product takes fp32 operands; ds = p (g . v^T - dcap). Returns fp32
+    (dq, dk, dv, dpos), dpos = sum over the batch of ds."""
+    p = _probs(q, k, pos, key_mask, m, l)
+    g = g.float()
+    ds = p * (torch.matmul(g, v.float().transpose(-1, -2)) - dcap[..., None])
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    return dq, dk, dv, ds.sum(dim=0)
+
+
+def flash_attention_backward_v2_plain(q, k, v, pos, key_mask, m, l, dcap, g):
+    """Plain PyTorch version of ``flash_attention_backward_v2`` (K2b), in the
+    arithmetic of the TPU kernel (flash.py:545-576): p in fp32, then bf16(p),
+    bf16(g) and bf16(ds) (q's dtype) as the products' operands with fp32
+    accumulation; ds and dpos from the unrounded p. Returns fp32
+    (dq, dk, dv, dpos)."""
+    cdt = q.dtype
+    p = _probs(q, k, pos, key_mask, m, l)
+    g_c = g.float().to(cdt).float()
+    dv = torch.matmul(p.to(cdt).float().transpose(-1, -2), g_c)
+    dp = torch.matmul(g_c, v.float().transpose(-1, -2))
+    ds = p * (dp - dcap[..., None])
+    ds_c = ds.to(cdt).float()
+    dq = torch.matmul(ds_c, k.float())
+    dk = torch.matmul(ds_c.transpose(-1, -2), q.float())
+    return dq, dk, dv, ds.sum(dim=0)
+
+
+def _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, fp32_operands):
+    """Check the inputs and launch ``pnt_t5_attention_core_bwd``."""
+    dev = q.device
+    if dev.type != "cuda" or any(
+            t.device != dev for t in (k, v, pos, key_mask, m, l, dcap, g)):
+        raise ValueError("attention kernel: all inputs must be on one CUDA device")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_qkv(t, name)
+    B, H, Lq, d = q.shape
+    Lk = k.shape[2]
+    if (k.shape != (B, H, Lk, d) or v.shape != k.shape
+            or g.shape != q.shape):
+        raise ValueError(
+            f"attention kernel: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} g {tuple(g.shape)} do not match"
+        )
+    if k.stride() != v.stride():
+        raise ValueError("attention kernel: k and v must share strides")
+    if d not in (64, 128):
+        raise ValueError(f"attention kernel: dk must be 64 or 128, got {d}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"attention kernel: g must be float32, got {g.dtype}")
+    if (g.stride(3) != 1 or any(s % 4 for s in g.stride()[:3])
+            or g.data_ptr() % 16):
+        raise ValueError(
+            f"attention kernel: g must have a contiguous head dimension, "
+            f"other strides multiples of 4 and 16-byte alignment (strides "
+            f"{g.stride()})"
+        )
+    _check_stats(pos, "pos", (H, Lq, Lk))
+    _check_stats(key_mask, "key_mask", (B, Lk))
+    for t, name in ((m, "m"), (l, "l"), (dcap, "dcap")):
+        _check_stats(t, name, (B, H, Lq))
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dq, dk, dv = new(B, H, Lq, d), new(B, H, Lk, d), new(B, H, Lk, d)
+    dpos_part = new(-(-B // DPOS_ROWS_PER_GROUP), H, Lq, Lk)
+    dpos = new(H, Lq, Lk)
+    rc = kernels.library().pnt_t5_attention_core_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], g.data_ptr(), *g.stride()[:3],
+        pos.data_ptr(), key_mask.data_ptr(), m.data_ptr(), l.data_ptr(),
+        dcap.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dpos_part.data_ptr(), dpos.data_ptr(),
+        B, H, Lq, Lk, d, DPOS_ROWS_PER_GROUP, int(fp32_operands),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(rc, "t5_attention_core_bwd")
+    return dq, dk, dv, dpos
+
+
+def flash_attention_backward(q, k, v, pos, key_mask, m, l, dcap, g):
+    """K2a -> fp32 (dq (B, H, Lq, dk), dk, dv (B, H, Lk, dk), dpos (H, Lq,
+    Lk)).
+
+    q (B, H, Lq, dk), k/v (B, H, Lk, dk); pos (H, Lq, Lk) and key_mask
+    (B, Lk) additive fp32; m, l (B, H, Lq) the forward's statistics; dcap
+    (B, H, Lq) = sum g * out; g (B, H, Lq, dk) fp32 the cotangent of the
+    attention output. CPU tensors: ``flash_attention_backward_plain``. CUDA
+    tensors: ``csrc/t5_attention_bwd.cu`` with fp32 operands, which
+    takes bf16 q/k/v of dk 64 or 128 (head dimension contiguous, other
+    strides multiples of 8, k and v sharing strides), fp32 g (head
+    dimension contiguous, other strides multiples of 4) and contiguous fp32
+    pos / key_mask / m / l / dcap. dpos is summed in a fixed order: two runs
+    on the same inputs give the same bits."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, pos, key_mask, m, l,
+                                              dcap, g)
+    out = _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, True)
+    flash_attention_backward.launches += 1
+    return out
+
+
+flash_attention_backward.launches = 0  # kernel launches; CPU route not counted
+
+
+def flash_attention_backward_v2(q, k, v, pos, key_mask, m, l, dcap, g):
+    """K2b: as ``flash_attention_backward`` with bf16(p), bf16(g) and
+    bf16(ds) as the products' operands. CPU tensors:
+    ``flash_attention_backward_v2_plain``; CUDA tensors: the same kernel
+    family with bf16 WMMA products and the same input rules."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_v2_plain(q, k, v, pos, key_mask, m,
+                                                 l, dcap, g)
+    out = _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, False)
+    flash_attention_backward_v2.launches += 1
+    return out
+
+
+flash_attention_backward_v2.launches = 0  # kernel launches; CPU route not counted

@@ -2,8 +2,10 @@
 
 ``RunConfig`` has the JAX package's fields and defaults. ``run`` ports the
 LCE curriculum on static pools (``curriculum="lce"``, ``mining="static"``,
-``scored_pool=0``) with fp32 AdamW, dense attention and the fused
-self-attention kernels (``flash_v3``). Every other value of a field that
+``scored_pool=0``) with fp32 AdamW; dense attention with the fused
+self-attention kernels (``flash_v3``), or chunked attention with the
+attention-core kernels (``flash_kernel``) and either residual dtype; and an
+fp32 or bf16 gradient-accumulation carry. Every other value of a field that
 would change what runs raises ``NotImplementedError`` naming its ROADMAP
 item: nothing is silently ignored. ``microbatch_unroll`` unrolls the JAX
 package's lax.scan and changes no result; the port's microbatch loop is a
@@ -170,13 +172,9 @@ _UNPORTED = (
     ("curriculum", "lce", "slice C (interp, level, eta, contrast, meta)"),
     ("mining", "static", "slice D (online mining)"),
     ("scored_pool", 0, "slice P (model-in-the-loop negative selection)"),
-    ("attention_impl", "dense", "slice T2 (chunked attention, custom VJP)"),
-    ("flash_kernel", False, "slice T2 (K2a/K2b at L 512)"),
-    ("attn_residual_dtype", "fp32", "slice T2 (chunked attention residual)"),
     ("ffn_custom_vjp", False, "slice T2 (the ReLU-FFN custom VJP)"),
     ("dropout", False, "slice T2 (dropout)"),
     ("grad_accum_steps", 1, "slice T2 (optax.MultiSteps)"),
-    ("grad_accum_dtype", "fp32", "slice T2 (bf16 accumulation carry)"),
     ("scan_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("stacked_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("export_hf", False, "slice R (models/hf_export.py)"),
@@ -244,8 +242,10 @@ def _build_model(cfg: RunConfig, tok, device: torch.device):
         mk(), vocab_size=max(tok.vocab_size, 16),
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
         remat=cfg.remat, remat_policy=cfg.remat_policy,
-        attention_impl=cfg.attention_impl, flash_kernel=cfg.flash_kernel,
+        attention_impl=cfg.attention_impl,
+        attention_chunk=cfg.attention_chunk, flash_kernel=cfg.flash_kernel,
         flash_v3=cfg.flash_v3, fused_qkv=cfg.fused_qkv,
+        attn_residual_dtype=cfg.attn_residual_dtype,
     )
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     return init_params(mcfg, gen, device), mcfg

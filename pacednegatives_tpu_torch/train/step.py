@@ -1,11 +1,12 @@
 """The LCE train step: the port of train/step.py.
 
-One step: cast the big weights to the compute dtype once (and concatenate
-q|k|v once, with fused_qkv), one teacher-forced forward over
-[positives; negatives] per microbatch and its backward by autograd, fp32
-gradient accumulation over the microbatches, AdamW, then the curriculum
-update from the same pass's CE values. The JAX step's position-bias vjp
-(step.py:165-178, 301-305) is autograd's own gradient here (models/t5.py).
+One step: compute the position biases once from the two rel_bias tables,
+cast the big weights to the compute dtype once (and concatenate q|k|v once,
+with fused_qkv), one teacher-forced forward over [positives; negatives] per
+microbatch and its backward by autograd, gradient accumulation over the
+microbatches in ``grad_accum_dtype``, the biases' accumulated cotangent
+folded back into the tables through the gather's backward, AdamW, then the
+curriculum update from the same pass's CE values (step.py:145-330).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pacednegatives_tpu_torch.train.state import TrainState
 Batch = dict[str, torch.Tensor]
 
 
-def _check_slice(loss: str, dropout: bool, grad_accum_dtype: str) -> None:
+def _check_slice(loss: str, dropout: bool) -> None:
     if loss == "pair":
         raise NotImplementedError(
             "loss='pair' is not ported yet (ROADMAP.md slice C, with the "
@@ -37,10 +38,18 @@ def _check_slice(loss: str, dropout: bool, grad_accum_dtype: str) -> None:
     if dropout:
         raise NotImplementedError(
             "dropout is not ported yet (ROADMAP.md slice T2)")
-    if grad_accum_dtype == "bf16":
-        raise NotImplementedError(
-            "grad_accum_dtype='bf16' is not ported yet (ROADMAP.md slice "
-            "T2); the port accumulates in fp32")
+
+
+def _fold_rel_bias_grad(grads: dict, stack_key: str, g: torch.Tensor) -> None:
+    """Add ``g`` into the rel_bias leaf of ``grads[stack_key]`` (the stacked
+    layout's top-level ``rel_bias`` or ``block_0.self_attn.rel_bias``), in
+    place (step.py:41-54)."""
+    stack = grads[stack_key]
+    if "rel_bias" in stack:
+        stack["rel_bias"] = stack["rel_bias"] + g
+    else:
+        sa = stack["block_0"]["self_attn"]
+        sa["rel_bias"] = sa["rel_bias"] + g
 
 
 def make_train_step(
@@ -62,9 +71,11 @@ def make_train_step(
     (or the flat-token regrouping with label_grouping="flat_tokens").
 
     microbatches=k > 1 splits the batch into k equal example slices, runs
-    forward + backward on each in turn and sums the fp32 gradients (each
-    divided by k in its own dtype first, as the JAX scan does): one
-    optimizer and one curriculum update per step."""
+    forward + backward on each in turn and sums the gradients in
+    ``grad_accum_dtype`` ("fp32", or "bf16", which rounds once per add):
+    each is divided by k in its own dtype, cast to the carry's dtype and
+    added, as the JAX scan does; the sum is upcast to fp32 for the
+    optimizer. One optimizer and one curriculum update per step."""
     if loss not in ("pair", "lce"):
         raise ValueError(loss)
     if label_grouping not in ("per_example", "flat_tokens"):
@@ -82,9 +93,10 @@ def make_train_step(
             "grad_accum_dtype='bf16' requires microbatches > 1 "
             "(no accumulation carry exists at microbatches=1)"
         )
-    _check_slice(loss, dropout, grad_accum_dtype)
+    _check_slice(loss, dropout)
     n = n_neg_per_example
     k = microbatches
+    acc_dt = torch.float32 if grad_accum_dtype == "fp32" else torch.bfloat16
 
     def _pre(p: torch.Tensor) -> torch.Tensor:
         # the big matmul weights in the compute dtype, once per step
@@ -93,14 +105,15 @@ def make_train_step(
             p = p.to(model_cfg.dtype)
         return p.detach().requires_grad_(True)
 
-    def loss_fn(params, pos_ids, pos_mask, pos_labels, neg_ids, neg_mask,
-                neg_labels):
+    def loss_fn(params, biases, pos_ids, pos_mask, pos_labels, neg_ids,
+                neg_mask, neg_labels):
         # one forward over [positives; negatives] (step.py:200-232)
         b = pos_ids.shape[0]
         ids = torch.cat([pos_ids, neg_ids])
         mask = torch.cat([pos_mask, neg_mask])
         labels = torch.cat([pos_labels, neg_labels])
-        logits = t5.forward_logits(params, model_cfg, ids, labels, mask)
+        logits = t5.forward_logits(params, model_cfg, ids, labels, mask,
+                                   pos_biases=biases)
         ce_tok = token_ce_per_token(logits, labels)
         count = (labels != -100).sum(dim=-1).clamp_min(1)
         ce_all = ce_tok.sum(dim=-1) / count
@@ -115,12 +128,25 @@ def make_train_step(
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
         B = batch["pos_ids"].shape[0]
+        # Position biases once per step, not per microbatch (step.py:
+        # 165-178): the microbatches differentiate against the bias
+        # tensors, whose summed cotangent goes through the bucket gather's
+        # backward once, below.
+        tables = [t5._rel_bias(state.params[s]).detach().requires_grad_(True)
+                  for s in ("encoder", "decoder")]
+        with torch.enable_grad():
+            full = t5.position_bias_from_tables(
+                *tables, model_cfg, batch["pos_ids"].shape[1],
+                batch["pos_labels"].shape[1])
+        bias_keys = ("enc", "dec_self")
+        biases = {key: full[key].detach().requires_grad_(True)
+                  for key in bias_keys}
         with torch.no_grad():
             src = (t5.fuse_attention_params(state.params)
                    if model_cfg.fused_qkv else state.params)
         flat = t5.flatten_params(t5.tree_map(_pre, src))
         params_c = t5.unflatten_params(flat)
-        leaves = list(flat.values())
+        leaves = [*flat.values(), *(biases[key] for key in bias_keys)]
         keys = ("pos_ids", "pos_mask", "pos_labels", "neg_ids", "neg_mask",
                 "neg_labels")
         if k <= 1:
@@ -140,15 +166,17 @@ def make_train_step(
         auxes = []
         for chunk in chunks:
             with torch.enable_grad():
-                l_i, aux_i = loss_fn(params_c, *chunk)
+                l_i, aux_i = loss_fn(params_c, biases, *chunk)
                 g_i = torch.autograd.grad(l_i, leaves, allow_unused=True)
             g_i = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(g_i, leaves)]
             if k <= 1:
-                grads = [g.float() for g in g_i]
+                grads = g_i
                 main_loss = l_i.detach()
             else:
-                parts = [(g / k).float() for g in g_i]
+                # each microbatch's gradient / k in its own dtype, then into
+                # the carry's dtype (step.py:261-297)
+                parts = [(g / k).to(acc_dt) for g in g_i]
                 grads = parts if grads is None else [
                     a.add_(p) for a, p in zip(grads, parts)]
                 main_loss = main_loss + l_i.detach() / k
@@ -156,9 +184,16 @@ def make_train_step(
         pce, nce, sig_ce, p_first, n_first = (
             torch.cat(parts) for parts in zip(*auxes))
 
-        grads = t5.unflatten_params(dict(zip(flat, grads)))
+        # the optimizer and the bias fold run in fp32 (step.py:288-305)
+        grads = [g.float() for g in grads]
+        gbias = grads[len(flat):]
+        grads = t5.unflatten_params(dict(zip(flat, grads[:len(flat)])))
         if model_cfg.fused_qkv:
             grads = t5.split_attention_grads(grads)
+        g_enc, g_dec = torch.autograd.grad(
+            [full[key] for key in bias_keys], tables, grad_outputs=gbias)
+        _fold_rel_bias_grad(grads, "encoder", g_enc)
+        _fold_rel_bias_grad(grads, "decoder", g_dec)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         params = apply_updates(state.params, updates)
 

@@ -286,3 +286,115 @@ def test_train_step_kernels_match_dense(cuda):
     rel = [((mu_on[k] - b).norm() / b.norm()).item()
            for k, b in mu_off.items() if b.norm() > 0]
     assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05
+
+
+def _core_bwd_inputs(g, B, H, Lq, Lk, dk):
+    q = _randn(g, B, H, Lq, dk)
+    k, v = (_randn(g, B, H, Lk, dk) for _ in range(2))
+    pos = torch.randn((H, Lq, Lk), generator=g, device="cuda") * 0.5
+    lens = torch.randint(1, Lk + 1, (B,), generator=g, device="cuda")
+    lens[0] = Lk
+    km = torch.where(torch.arange(Lk, device="cuda")[None] < lens[:, None],
+                     0.0, flash.NEG_INF).float()
+    out, m, l = flash.flash_attention_forward(q, k, v, pos, km, torch.float32)
+    gout = torch.randn((B, H, Lq, dk), generator=g, device="cuda")
+    dcap = (gout * out).sum(dim=-1)
+    return q, k, v, pos, km, m, l, dcap, gout
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,dk", [(5, 2, 128, 128, 64),
+                                          (2, 3, 256, 128, 128),
+                                          (3, 2, 72, 100, 64)])
+@pytest.mark.parametrize("kernel", ["k2b", "k2a"])
+def test_core_backward_matches_plain(cuda, kernel, B, H, Lq, Lk, dk):
+    """K2b / K2a against their plain versions, at aligned, Lq != Lk and
+    ragged shapes, with batch sizes that leave a partial dpos group.
+    Tolerances (fp32 outputs): K2b one bf16 ulp of each output's largest
+    magnitude (its operands round to bf16 on both sides and may round one
+    ulp apart), K2a 1e-4 of it (fp32 operands, summation order only);
+    dpos 1e-3 / 1e-4 of its largest. Two runs give the same bits."""
+    fn, plain, tol, dpos_tol = {
+        "k2b": (flash.flash_attention_backward_v2,
+                flash.flash_attention_backward_v2_plain, 2.0**-7, 1e-3),
+        "k2a": (flash.flash_attention_backward,
+                flash.flash_attention_backward_plain, 1e-4, 1e-4),
+    }[kernel]
+    args = _core_bwd_inputs(cuda, B, H, Lq, Lk, dk)
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), name
+    assert (got[3] - ref[3]).abs().max().item() <= \
+        dpos_tol * ref[3].abs().max().item()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_core_backward_raises_on_what_it_cannot_take(cuda):
+    q, k, v, pos, km, m, l, dcap, gout = _core_bwd_inputs(cuda, 1, 1, 64, 64,
+                                                          64)
+    with pytest.raises(TypeError, match="g must be float32"):
+        flash.flash_attention_backward_v2(q, k, v, pos, km, m, l, dcap,
+                                          gout.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        flash.flash_attention_backward(q.float(), k.float(), v.float(), pos,
+                                       km, m, l, dcap, gout)
+    with pytest.raises(ValueError, match="dcap"):
+        flash.flash_attention_backward(q, k, v, pos, km, m, l, dcap[:, :, :8],
+                                       gout)
+
+
+def test_chunked_step_kernels_match_plain(cuda):
+    """One LCE step with chunked attention at a small width and L 128:
+    the kernel route (K1 + K2b, bf16 residual and carry, 2 microbatches)
+    against the plain chunked route on the same weights and batch."""
+    tok = HashTokenizer(vocab_size=512)
+    corpus = TextCorpus.synthetic(num_docs=32, num_queries=8, seed=0,
+                                  doc_len=100, query_len=8)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=12,
+                                 max_d_tokens=112)
+    assert store.prompt_len == 128
+    dc = DeviceCorpus.build(store, TripletStore.synthetic(corpus, 16, 10),
+                            device="cuda")
+    cfg0 = t5.T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                       num_heads=2, num_layers=2, num_decoder_layers=2,
+                       dtype=torch.bfloat16, fused_qkv=True,
+                       attention_impl="chunked", attention_chunk=128,
+                       attn_residual_dtype="bf16")
+    params = t5.init_params(cfg0, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    ctrl = EtaController(eta0=2.0, meta_lr=0.01, warmup_steps=1,
+                         total_steps=8, kind="lce", objective="weighted_ce",
+                         optimizer="adamw", clamp=False, ce_scale=18.7)
+    batch = dc.lce_batch(torch.Generator(device="cuda").manual_seed(1),
+                         torch.arange(4, device="cuda"), 0.5, 3)
+    counters = (flash.flash_attention_forward,
+                flash.flash_attention_backward_v2,
+                flash.flash_attention_backward)
+    out = []
+    for kernel in (True, False):
+        tx = make_optimizer(1e-2, total_steps=8, warmup_steps=1)
+        step = make_train_step(dataclasses.replace(cfg0, flash_kernel=kernel),
+                               ctrl, tx, loss="lce", n_neg_per_example=3,
+                               rel_id=tok.true_id, nrel_id=tok.false_id,
+                               microbatches=2, grad_accum_dtype="bf16")
+        before = [c.launches for c in counters]
+        state, metrics = step(init_train_state(params, tx, ctrl.init("cuda")),
+                              batch)
+        torch.cuda.synchronize()
+        used = [c.launches - b for c, b in zip(counters, before)]
+        # K1 and K2b once per encoder layer and microbatch, K2a never
+        assert used == ([4, 4, 0] if kernel else [0, 0, 0])
+        out.append((metrics["loss"].item(), t5.flatten_params(
+            state.opt_state.mu)))
+    (l_on, mu_on), (l_off, mu_off) = out
+    # bf16 rounding noise between the routes (chip_smoke.py's tolerances)
+    assert np.isfinite(l_on) and abs(l_on - l_off) <= 1e-2 * abs(l_off)
+    rel = [((mu_on[k] - b).norm() / b.norm()).item()
+           for k, b in mu_off.items() if b.norm() > 0]
+    assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05

@@ -192,8 +192,22 @@ def test_flash_v3_routing(jparams, monkeypatch):
 
 
 def test_chunked_attention_not_ported(jparams):
-    cfg = dataclasses.replace(config_from_jax(JCFG), attention_impl="chunked")
+    """Chunked attention (72 keys in chunks of 32, so the last chunk is
+    padded) through encode and decode, against the JAX package's chunked
+    route on the same weights."""
+    jcfg = dataclasses.replace(JCFG, flash_v3=False, attention_impl="chunked",
+                               attention_chunk=32)
     ids, mask = _batch()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt5.encode(params_from_jax(jparams), cfg, torch.from_numpy(ids),
-                   torch.from_numpy(mask))
+    jenc = jt5.encode(jparams, jcfg, jnp.asarray(ids), jnp.asarray(mask))
+    jdec = jt5.decode(jparams, jcfg, jnp.zeros((2, 3), jnp.int32), jenc,
+                      jnp.asarray(mask))
+    params, cfg = params_from_jax(jparams), config_from_jax(jcfg)
+    assert (cfg.attention_impl, cfg.attention_chunk) == ("chunked", 32)
+    enc = tt5.encode(params, cfg, torch.from_numpy(ids),
+                     torch.from_numpy(mask))
+    dec = tt5.decode(params, cfg, torch.zeros((2, 3), dtype=torch.long), enc,
+                     torch.from_numpy(mask))
+    np.testing.assert_allclose(enc.numpy(), np.asarray(jenc), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(dec.numpy(), np.asarray(jdec), atol=ATOL,
+                               rtol=RTOL)

@@ -369,8 +369,8 @@ def test_cli_train_main_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("curriculum", "eta"), ("mining", "online"), ("scored_pool", 4),
-    ("dropout", True), ("attention_impl", "chunked"), ("flash_kernel", True),
-    ("grad_accum_dtype", "bf16"), ("model", "/some/hf/dir"),
+    ("dropout", True), ("ffn_custom_vjp", True), ("grad_accum_steps", 2),
+    ("export_hf", True), ("model", "/some/hf/dir"),
     ("remat_policy", "dots_nobatch"),
 ])
 def test_run_refuses_unported_settings(tmp_path, field, value):

@@ -34,10 +34,21 @@ Phases, one JSON line each (any failure exits non-zero):
              residual) through ``cli.train.main``: K1 and K2b launched
              exactly 12 x 8 times a step and K2a never, finite losses,
              every weight moved; step 1 against the plain chunked route;
-             then two steps at L 768, where K2a takes the backward.
+             then two steps at L 768, where K2a takes the backward;
+7. dense   - the MIPS top-k kernels against their plain versions at the
+             dense paths' scales (K6 over an 8.8M-row int8 index, K5 over a
+             1M-row fp32 index at k' = 1000, bf16 docs, k' = k against an
+             exact top-k): values within an fp32 summation-order bound,
+             indices equal except near-tie swaps, two runs bitwise equal;
+             then ``cli.train.main`` with online mining over an int8 index
+             of 16,384 docs (K6 once a step, two refreshes), and
+             ``cli.build_pools.main --method dense`` on that run (K5 once
+             per 64 queries; pools equal to ``--topk exact``'s up to
+             near-tie swaps).
 
-Then a JSON line with one entry per kernel, and the last line
-``{"ok": true, "device": {...}}``.
+Then a JSON line with one entry per kernel (its time beside its bound, its
+plain version's and, where one PyTorch call computes the same function,
+that call's), and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import numpy as np
 import torch
 
 from pacednegatives_tpu_torch import kernels
+from pacednegatives_tpu_torch.cli.build_pools import main as build_pools_main
 from pacednegatives_tpu_torch.cli.train import main as train_main
 from pacednegatives_tpu_torch.curriculum import EtaController
 from pacednegatives_tpu_torch.data import (
@@ -66,6 +78,7 @@ from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
+from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
 from pacednegatives_tpu_torch.ops.flash import (
     NEG_INF,
     attention_backward,
@@ -85,12 +98,22 @@ from pacednegatives_tpu_torch.ops.flash_v3 import (
     v3_forward,
 )
 from pacednegatives_tpu_torch.ops.gemm import gemm, gemm_plain
+from pacednegatives_tpu_torch.ops.mips import (
+    block_scores,
+    mips_topk_exact,
+    mips_topk_pallas,
+    mips_topk_pallas_plain,
+    mips_topk_pallas_quantized,
+    mips_topk_pallas_quantized_plain,
+    quantize_embeddings,
+)
 from pacednegatives_tpu_torch.train import (
     init_train_state,
     make_optimizer,
     make_train_step,
 )
 from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE
+from pacednegatives_tpu_torch.train.runner import load_run
 
 BF16_ULP_REL = 2.0**-7  # one bf16 ulp, relative to the largest magnitude
 B_SERVE, L_SERVE = 256, 188  # Reranker batch and t5-base prompt length
@@ -155,6 +178,37 @@ ROWS768 = B768 * (1 + N768)  # one microbatch: the kernels' batch
 # the summation order differs: 1e-4 of the largest, dpos included.
 K2B_TOL, K2B_DPOS_TOL = BF16_ULP_REL, 1e-3
 K2A_TOL, K2A_DPOS_TOL = 1e-4, 1e-4
+# The least time the card could take (H100 SXM data sheet): bytes over
+# 3.35 TB/s, operations over the peak of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# Phase 7. K6 at the JAX bench's 4096-aligned MS MARCO point (bench.py:
+# 581-586) with the online pool of 128 + 1 and its tiling (bench.py:635-638,
+# online.py:75-76): 6.8 GB of int8. K5 at the build_pools call of the
+# bench's 1M point (1000 per query, block 1024, k' = k). As (B, N, D, k,
+# block_n, k'): k' None takes the wrappers' default min(k, block_n).
+MSMARCO_N = 8_806_400
+K6_SCALE = (16, MSMARCO_N, 768, 129, 4096, 32)
+K6_ONLINE = (16, 16_384, 768, 65, 4096, 32)  # 7b's call
+K5_POOLS = (64, 1_003_520, 768, 1000, 1024, None)
+K5_BF16 = (16, 262_144, 768, 129, 4096, 32)
+K5_EXACT = (16, 262_144, 768, 129, 4096, 129)
+# Value tolerance of a MIPS kernel against its plain version: a D-term dot
+# product summed in another order differs by at most D * 2^-23 * sum|q_i
+# d_i| <= D * 2^-23 * |q| |d| (per-add error 2^-24, doubled because the
+# tensor cores' fp32 accumulation truncates); the embeddings are unit rows
+# (int8: |dequantised row| within 1% of 1), so with |q| = 1 the bound is
+# D * 2^-23 * 1.01. Indices may differ only between near-ties: where they
+# do, the kernel's doc must score (plain arithmetic) within the same bound
+# of the plain version's doc at that rank.
+def mips_tol(D: int) -> float:
+    return D * 2.0**-23 * 1.01
+
+
+# Phase 7b: phase 5's t5-base preset with online mining over an int8 index
+# of 16,384 docs (four 4096-row blocks: the multi-block merge runs with
+# k' 32 < k 65), pools of 64, refresh every 2 steps, 4 steps.
+ONLINE_STEPS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -189,6 +243,16 @@ def check(name: str, err: float, tol: float, **fields) -> dict:
     if not ok:
         raise AssertionError(f"{name}: max |diff| {err} > tolerance {tol}")
     return {"max_abs_err": err, **fields}
+
+
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """{"bound_ms", "bound_by"}: the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -260,10 +324,15 @@ def phase_kernels() -> dict:
         ref = gemm_plain(a, w)
         err = max_abs(gemm(a, w), ref)
         tol = BF16_ULP_REL * ref.float().abs().max().item()
+        K = a.shape[1]
         gemm_rows[label] = check(
-            f"gemm_{label}", err, tol, shape=[M, a.shape[1], n],
+            f"gemm_{label}", err, tol, shape=[M, K, n],
             ms=time_ms(lambda: gemm(a, w)),
             plain_ms=time_ms(lambda: gemm_plain(a, w)),
+            # the yardstick: one cuBLAS product (the plain version is the
+            # same call)
+            library_ms=time_ms(lambda: torch.matmul(a, w)),
+            **bound(2 * (M * K + K * n + M * n), 2 * M * K * n, "bf16"),
         )
     results["gemm"] = gemm_rows
 
@@ -298,6 +367,12 @@ def phase_kernels() -> dict:
               ((l - rl).abs() / rl).max().item(), 1e-3)
         # timed as the slice runs it: bf16 out, K3's layout
         out16 = torch.empty((B, L, Hc, d), dtype=torch.bfloat16, device="cuda")
+        # the yardstick: one scaled_dot_product_attention call, T5's unit
+        # scale, the position bias and key mask summed into one (B, H, L,
+        # L) bf16 attn_mask (built outside the timing)
+        mask = (pos[None] + km[:, None, None, :]).to(torch.bfloat16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qkv_bytes = 4 * B * Hc * L * d * 2  # q, k, v in, out out (bf16)
         att[label] = check(
             f"attention_{label}_out", max_abs(o, ref), 2e-2,
             shape=[B, Hc, L, d],
@@ -305,7 +380,13 @@ def phase_kernels() -> dict:
                 q, k, v, pos, km, out=out16.transpose(1, 2))),
             plain_ms=time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, pos, km, out=out16.transpose(1, 2))),
+            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                            scale=1.0)),
+            # q.k^T and p.v; pos and key mask in, (m, l) out (fp32)
+            **bound(qkv_bytes + Hc * L * L * 4 + B * L * 4
+                    + 2 * B * Hc * L * 4, 4 * B * Hc * L * L * d, "bf16"),
         )
+        del mask
     # K1 as the chunked path calls it: fp32 output, (B, H, L, dk) buffers,
     # at the shapes of phase 6's two runs (one microbatch each)
     for label, B, L in (("train512", B512, 512), ("train768", ROWS768, 768)):
@@ -430,6 +511,12 @@ def _check_k4(g, label, B, L, H, dk) -> dict:
         "errors": errs, "dpos_bitwise_repeat": deterministic,
         "ms": time_ms(lambda: attention_backward(*core)),
         "plain_ms": time_ms(lambda: attention_backward_plain(*core)),
+        # no single PyTorch call computes this backward
+        "library_ms": None,
+        # q, k, v, g in and dq, dk, dv, attn out (bf16); pos and dpos (H,
+        # L, L), key mask, m, l (fp32); six products: s, o, dv, dp, dq, dk
+        **bound(8 * B * H * L * dk * 2 + 2 * H * L * L * 4 + B * L * 4
+                + 2 * B * H * L * 4, 6 * 2 * B * H * L * L * dk, "bf16"),
         "k4_ms": time_ms(lambda: v3_backward(*args)),
         "k4_plain_ms": time_ms(lambda: v3_backward_plain(*args)),
     }
@@ -477,6 +564,15 @@ def _check_core_bwd(g, kernel, B, H, Lq, Lk, dk) -> dict:
         "errors": errs, "dpos_bitwise_repeat": bitwise,
         "ms": time_ms(lambda: fn(*args)),
         "plain_ms": time_ms(lambda: plain(*args)),
+        "library_ms": None,  # no single PyTorch call computes it
+        # q, k, v (bf16), g, dcap, m, l, pos, key mask in; dq, dk, dv, dpos
+        # out (fp32); five products (s, dp, dv, dq, dk), bf16 operands for
+        # K2b and fp32 for K2a
+        **bound(B * H * (Lq + 2 * Lk) * dk * 2 + B * H * Lq * dk * 4
+                + 3 * B * H * Lq * 4 + 2 * H * Lq * Lk * 4 + B * Lk * 4
+                + B * H * (Lq + 2 * Lk) * dk * 4,
+                5 * 2 * B * H * Lq * Lk * dk,
+                "bf16" if kernel == "k2b" else "fp32"),
     }
 
 
@@ -666,6 +762,8 @@ COUNTED = {
     "attention_bwd": attention_backward,
     "core_bwd_k2a": flash_attention_backward,
     "core_bwd_k2b": flash_attention_backward_v2,
+    "mips_topk": mips_topk_pallas,
+    "mips_topk_int8": mips_topk_pallas_quantized,
 }
 
 
@@ -683,11 +781,14 @@ def _per_step(**counts) -> dict:
     return {name: counts.get(name, 0) for name in COUNTED}
 
 
-def _train_run(smi: str, case: str, preset: dict, per_step: dict) -> dict:
+def _train_run(smi: str, case: str, preset: dict, per_step: dict,
+               once: dict | None = None, out: str | None = None) -> dict:
     """cli.train.main with ``preset``, counted: launches must be
-    ``per_step`` times the steps, losses finite and every weight moved."""
+    ``per_step`` times the steps plus ``once`` (launches outside the
+    steps), losses finite and every weight moved. The run directory is
+    ``out`` when given (and kept), else a temporary one."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "run")
+        out = out or os.path.join(tmp, "run")
         torch.cuda.synchronize()
         _zero_launches()
         t0 = time.perf_counter()
@@ -701,7 +802,8 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict) -> dict:
         final = torch.load(os.path.join(out, "final", CHECKPOINT_FILE),
                            map_location="cuda", weights_only=True)["params"]
     steps = summary["steps"]
-    want = {name: n * steps for name, n in per_step.items()}
+    want = {name: n * steps + (once or {}).get(name, 0)
+            for name, n in per_step.items()}
     losses = [r["loss"] for r in rows if "loss" in r]
     finite = len(losses) == steps and bool(np.isfinite(losses).all())
     # the runner's initial weights: the same seed, the same draws
@@ -726,6 +828,8 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict) -> dict:
         nvidia_smi=smi, launches=launches, expected_launches=want,
         losses=losses, losses_finite=finite, leaves_changed=changed,
         leaves=len(init), weights_finite=weights_finite,
+        refresh_seconds=[r["refresh_seconds"] for r in rows
+                         if "refresh_seconds" in r],
     )
     emit("train", **fields)
     if not (launches == want and finite and changed == len(init)
@@ -837,6 +941,250 @@ def phase_chunked(smi: str) -> dict:
     return {"run": run, "step1": step1, "k2a_run": k2a}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: dense retrieval and online mining
+# ---------------------------------------------------------------------------
+
+
+def _unit_rows(g, n: int, D: int) -> torch.Tensor:
+    x = torch.randn((n, D), generator=g, device="cuda")
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def _mips_index(g, N: int, D: int, kind: str, slab: int = 262_144):
+    """Random unit embeddings from a seed, built on the card a slab at a
+    time: (docs,) in fp32 / bf16, or (int8 values, scales) quantised slab
+    by slab (no fp32 copy of the index)."""
+    if kind == "int8":
+        vals = torch.empty((N, D), dtype=torch.int8, device="cuda")
+        scales = torch.empty((N,), dtype=torch.float32, device="cuda")
+        for s0 in range(0, N, slab):
+            s1 = min(s0 + slab, N)
+            vals[s0:s1], scales[s0:s1] = quantize_embeddings(
+                _unit_rows(g, s1 - s0, D))
+        return vals, scales
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    docs = torch.empty((N, D), dtype=dt, device="cuda")
+    for s0 in range(0, N, slab):
+        s1 = min(s0 + slab, N)
+        docs[s0:s1] = _unit_rows(g, s1 - s0, D).to(dt)
+    return (docs,)
+
+
+def _topk_agreement(q, index, got, ref, tol) -> dict:
+    """Values within ``tol`` everywhere; where the indices differ, the
+    kernel's doc scores (the plain arithmetic) within ``tol`` of the plain
+    version's value at that rank: a near-tie swap."""
+    (v, i), (rv, ri) = got, ref
+    rows, cols = (i != ri).nonzero(as_tuple=True)
+    swap_err = 0.0
+    if len(rows):
+        s = block_scores(q, *(t[i[rows, cols]] for t in index))
+        s = s[rows, torch.arange(len(rows), device=s.device)]
+        swap_err = (s - rv[rows, cols]).abs().max().item()
+    return {"max_abs_err": max_abs(v, rv), "near_tie_swaps": len(rows),
+            "swap_err": swap_err}
+
+
+def _mips_library_ms(q, index, k: int) -> float:
+    """The yardstick, never called by the port: one torch.mm, then
+    torch.topk (int8: on a bf16 copy of the values, exact, built outside
+    the timing, and scaled after the product)."""
+    if len(index) == 2:
+        vals, scales = index
+        docs = torch.empty(vals.shape, dtype=torch.bfloat16, device="cuda")
+        for s0 in range(0, vals.shape[0], 1 << 20):
+            docs[s0:s0 + (1 << 20)] = vals[s0:s0 + (1 << 20)]
+        q_b = q.to(torch.bfloat16)
+        return time_ms(lambda: torch.topk(
+            torch.mm(q_b, docs.t()).float() * scales, k), warmup=1, reps=5)
+    q_l = q.to(index[0].dtype)
+    return time_ms(lambda: torch.topk(torch.mm(q_l, index[0].t()), k),
+                   warmup=1, reps=5)
+
+
+def _check_mips(g, case: str, kind: str, shape: tuple, exact: bool = False,
+                library: bool = True) -> dict:
+    """One K5 / K6 case: the kernel against its plain version (or, with
+    ``exact``, against a full fp32 product and a stable-sort top-k), two
+    runs bitwise equal, and kernel / plain / library times beside the
+    bound."""
+    B, N, D, k, block_n, kpb = shape
+    index = _mips_index(g, N, D, kind)
+    q = _unit_rows(g, B, D)
+    fn, plain = ((mips_topk_pallas_quantized, mips_topk_pallas_quantized_plain)
+                 if kind == "int8" else (mips_topk_pallas, mips_topk_pallas_plain))
+    run = lambda: fn(q, *index, k, block_n=block_n, k_per_block=kpb)
+    got, again = run(), run()
+    if exact:
+        ref_fn = lambda: mips_topk_exact(q, index[0], k)
+    else:
+        ref_fn = lambda: plain(q, *index, k, block_n=block_n,
+                               k_per_block=kpb)
+    ref = ref_fn()
+    torch.cuda.synchronize()
+    tol = mips_tol(D)
+    agree = _topk_agreement(q, index, got, ref, tol)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    emit("dense", check=f"{case}_bitwise_repeat", ok=bitwise)
+    if not bitwise:
+        raise AssertionError(f"{case}: two runs differ")
+    check(f"{case}_near_tie_swap_err", agree["swap_err"], tol,
+          near_tie_swaps=agree["near_tie_swaps"])
+    esize = index[0].element_size()
+    nbytes = (N * D * esize + (N * 4 if kind == "int8" else 0) + B * D * 4
+              + B * k * (4 + 8))
+    fields = dict(
+        shape=[B, N, D, k, block_n, kpb], doc_type=kind,
+        near_tie_swaps=agree["near_tie_swaps"], bitwise_repeat=bitwise,
+        ms=time_ms(run, warmup=2, reps=10),
+        plain_ms=time_ms(ref_fn, warmup=1, reps=3),
+        library_ms=_mips_library_ms(q, index, k) if library else None,
+        **bound(nbytes, 2 * B * N * D, "fp32" if kind == "fp32" else "bf16"),
+    )
+    out = check(case, agree["max_abs_err"], tol, **fields)
+    del index, got, again, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _online_preset() -> dict:
+    return dict(TRAIN_PRESET, mining="online", quantize_index=True,
+                synthetic_docs=K6_ONLINE[1], pool_size=K6_ONLINE[3] - 1,
+                encode_batch=128, refresh_every=2,
+                total_steps=B_TRAIN * ONLINE_STEPS)
+
+
+def _write_tsv(path: str, ids, texts) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"{i}\t{t}\n" for i, t in zip(ids, texts))
+
+
+def _build_pools(run_dir: str, tmp: str, corpus: TextCorpus, topk: str,
+                 cutoff: int) -> tuple[list[dict], dict, float]:
+    docs, queries = os.path.join(tmp, "docs.tsv"), os.path.join(tmp,
+                                                                "queries.tsv")
+    _write_tsv(docs, corpus.doc_ids, corpus.doc_texts)
+    _write_tsv(queries, corpus.query_ids, corpus.query_texts)
+    out = os.path.join(tmp, f"pools_{topk}.jsonl")
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    build_pools_main(["--method", "dense", "--topk", topk, "--cutoff",
+                      str(cutoff), "--run", run_dir, "--docs", docs,
+                      "--queries", queries, "--out", out, "--device",
+                      "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    with open(out) as f:
+        return [json.loads(line) for line in f], launches, seconds
+
+
+def phase_dense(smi: str) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(7)
+    emit("dense", config="t5-base", dim=768)
+    # 7a: the kernels at the dense paths' shapes
+    kern = {
+        "k6_msmarco": _check_mips(g, "mips_topk_int8_msmarco", "int8",
+                                  K6_SCALE),
+        "k6_online": _check_mips(g, "mips_topk_int8_online", "int8",
+                                 K6_ONLINE),
+        "k5_pools": _check_mips(g, "mips_topk_fp32_pools", "fp32", K5_POOLS),
+        "k5_bf16": _check_mips(g, "mips_topk_bf16", "bf16", K5_BF16),
+        "k5_exact": _check_mips(g, "mips_topk_fp32_exact", "fp32", K5_EXACT,
+                                exact=True, library=False),
+    }
+
+    # 7b: online mining through cli.train.main
+    layers = _train_cfg(True).num_layers
+    # a step: the phase 5 step (K3 forward and K4 backward once per encoder
+    # layer; GEMMs 3 per layer) plus K6 once; the query embedding (L 24)
+    # is below the fused block's 64-token gate and launches nothing. Each
+    # refresh (the first encode and one at step 2 of 4) encodes 16,384 docs
+    # of L 160 in 128 batches of 128: one K3 per layer per batch, 12 x 128
+    # = 1,536 attention and 3,072 GEMM launches.
+    per_step = _per_step(attention=layers, attention_bwd=layers,
+                         gemm=3 * layers, mips_topk_int8=1)
+    batches = -(-K6_ONLINE[1] // 128)
+    refreshes = 2
+    once = {"attention": refreshes * layers * batches,
+            "gemm": refreshes * 2 * layers * batches}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "online_run")
+        run = _train_run(smi, "online_int8", _online_preset(), per_step,
+                         once=once, out=run_dir)
+        if len(run["refresh_seconds"]) != refreshes:
+            raise AssertionError(f"online: refreshes {run['refresh_seconds']}")
+
+        # 7c: build_pools --method dense on that run: 2,048 docs, 256
+        # queries in batches of 64 -> K5 4 times (fp32 index, block 1024,
+        # k' = k = 1000); the encode of the docs (L 160, batches of 256)
+        # runs K3 12 x 8 times, the queries' (L 24) nothing
+        corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=0)
+        pools, launches, seconds = _build_pools(run_dir, tmp, corpus,
+                                                "pallas", 1000)
+        want = _per_step(mips_topk=4, attention=layers * 8,
+                         gemm=2 * layers * 8)
+        lengths = {len(p["doc_id_b"]) for p in pools}
+        fields = dict(case="build_pools_pallas", seconds=seconds,
+                      launches=launches, expected_launches=want,
+                      pools=len(pools), pool_lengths=sorted(lengths))
+        emit("dense", **fields)
+        if launches != want or len(pools) != 256 or lengths != {1000}:
+            raise AssertionError(f"build_pools: {fields}")
+        # --topk exact: the same pools up to near-tie swaps, checked on the
+        # run's own fp32 embeddings
+        exact, _, _ = _build_pools(run_dir, tmp, corpus, "exact", 1000)
+        params, mcfg, tok, rc = load_run(run_dir)
+        store = TokenizedStore.build(corpus, tok, max_q_tokens=rc.max_q_tokens,
+                                     max_d_tokens=rc.max_d_tokens)
+        enc = lambda a, m: encode_corpus(
+            params, mcfg, torch.from_numpy(a).cuda(),
+            torch.from_numpy(m).cuda(), batch_size=256)
+        q_emb, d_emb = enc(store.q_tokens, store.q_mask), enc(store.d_tokens,
+                                                              store.d_mask)
+        row = {d: r for r, d in enumerate(corpus.doc_ids)}
+        qi, a, b = [], [], []
+        for n, (p, e) in enumerate(zip(pools, exact)):
+            for x, y in zip(p["doc_id_b"], e["doc_id_b"]):
+                if x != y:
+                    qi.append(n)
+                    a.append(row[x])
+                    b.append(row[y])
+        swap_err = 0.0
+        if qi:
+            sa = (q_emb[qi] * d_emb[a]).sum(dim=1)
+            sb = (q_emb[qi] * d_emb[b]).sum(dim=1)
+            swap_err = (sa - sb).abs().max().item()
+        # how close the scores lie: the spread of each query's top 1000
+        # (the random-weight encoder maps the synthetic docs to nearly one
+        # direction, so most of a pool sits within a few fp32 ulps)
+        top = torch.topk(q_emb @ d_emb.t(), 1000).values
+        spread = (top[:, 0] - top[:, -1]).median().item()
+        check("build_pools_pallas_vs_exact_swap_err", swap_err,
+              mips_tol(768), near_tie_swaps=len(qi),
+              pool_slots=256 * 1000, median_top1000_score_spread=spread,
+              same_query_order=[p["query_id"] for p in pools]
+              == [e["query_id"] for e in exact])
+    return {"kernels": kern, "online": run,
+            "build_pools": {**fields, "near_tie_swaps_vs_exact": len(qi),
+                            "median_top1000_score_spread": spread}}
+
+
+def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
+           **extra) -> dict:
+    """One kernel of the final line, from its phase-3 or phase-7 check."""
+    return {"name": name, "route": "cuda",
+            "source": "pacednegatives_tpu_torch/csrc/" + source,
+            "replaces": "pacednegatives_tpu/" + replaces,
+            "launches": launches,
+            **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape")},
+            **extra}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device, smi = phase_device()
@@ -845,58 +1193,47 @@ def main() -> int:
     s = phase_slice()
     tr = phase_train(smi)
     ch = phase_chunked(smi)
-    g = k["gemm"]["qkv"]
-    a = k["attention"]["slice"]
-    b = k["v3_backward"]["train"]
-    k2b = k["core_bwd"]["k2b_train512"]
-    k2a = k["core_bwd"]["k2a_L768"]
+    dn = phase_dense(smi)
+    dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "chunked_512": ch["run"]["launches"],
-             "chunked_768": ch["k2a_run"]["launches"]}
+             "chunked_768": ch["k2a_run"]["launches"],
+             "online": dn["online"]["launches"],
+             "build_pools": dn["build_pools"]["launches"]}
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
-    src = "pacednegatives_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "gemm_bf16", "route": "cuda",
-         "source": src + "gemm_bf16.cu",
-         "replaces": "pacednegatives_tpu/ops/flash_v3.py:147",
-         "also_replaces": ["pacednegatives_tpu/ops/flash_v3.py:279"],
-         "launches": total["gemm"], "max_abs_err": g["max_abs_err"],
-         "ms": g["ms"], "plain_ms": g["plain_ms"],
-         "shape": g["shape"], "o_projection": k["gemm"]["o"]},
-        {"name": "t5_attention_fwd", "route": "cuda",
-         "source": src + "t5_attention_fwd.cu",
-         "replaces": "pacednegatives_tpu/ops/flash.py:121",
-         "also_replaces": ["pacednegatives_tpu/ops/flash.py:498",
-                           "pacednegatives_tpu/ops/flash_v3.py:147"],
-         "launches": total["attention"],
-         "max_abs_err": a["max_abs_err"], "ms": a["ms"],
-         "plain_ms": a["plain_ms"], "shape": a["shape"],
-         "train512_fp32_out": k["attention"]["train512_fp32_out"],
-         "train768_fp32_out": k["attention"]["train768_fp32_out"]},
-        {"name": "t5_attention_bwd", "route": "cuda",
-         "source": src + "t5_attention_bwd.cu",
-         "replaces": "pacednegatives_tpu/ops/flash_v3.py:279",
-         "launches": total["attention_bwd"],
-         "max_abs_err": b["max_abs_err"], "ms": b["ms"],
-         "plain_ms": b["plain_ms"], "shape": b["shape"],
-         "k4_ms": b["k4_ms"], "k4_plain_ms": b["k4_plain_ms"],
-         "L512_dk128": k["v3_backward"]["L512_dk128"]},
-        {"name": "t5_attention_core_bwd_k2b", "route": "cuda",
-         "source": src + "t5_attention_bwd.cu",
-         "replaces": "pacednegatives_tpu/ops/flash.py:614",
-         "launches": total["core_bwd_k2b"],
-         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"],
-         "plain_ms": k2b["plain_ms"], "shape": k2b["shape"],
-         "dk128": k["core_bwd"]["k2b_dk128"]},
-        {"name": "t5_attention_core_bwd_k2a", "route": "cuda",
-         "source": src + "t5_attention_bwd.cu",
-         "replaces": "pacednegatives_tpu/ops/flash.py:353",
-         "also_replaces": ["pacednegatives_tpu/ops/flash.py:384"],
-         "launches": total["core_bwd_k2a"],
-         "max_abs_err": k2a["max_abs_err"], "ms": k2a["ms"],
-         "plain_ms": k2a["plain_ms"], "shape": k2a["shape"],
-         "Lq256_Lk128": k["core_bwd"]["k2a_Lq256_Lk128"]},
+        _entry("gemm_bf16", "gemm_bf16.cu", "ops/flash_v3.py:147",
+               total["gemm"], k["gemm"]["qkv"],
+               also_replaces=["pacednegatives_tpu/ops/flash_v3.py:279"],
+               o_projection=k["gemm"]["o"]),
+        _entry("t5_attention_fwd", "t5_attention_fwd.cu", "ops/flash.py:121",
+               total["attention"], k["attention"]["slice"],
+               also_replaces=["pacednegatives_tpu/ops/flash.py:498",
+                              "pacednegatives_tpu/ops/flash_v3.py:147"],
+               train512_fp32_out=k["attention"]["train512_fp32_out"],
+               train768_fp32_out=k["attention"]["train768_fp32_out"]),
+        _entry("t5_attention_bwd", "t5_attention_bwd.cu",
+               "ops/flash_v3.py:279", total["attention_bwd"],
+               k["v3_backward"]["train"],
+               k4_ms=k["v3_backward"]["train"]["k4_ms"],
+               k4_plain_ms=k["v3_backward"]["train"]["k4_plain_ms"],
+               L512_dk128=k["v3_backward"]["L512_dk128"]),
+        _entry("t5_attention_core_bwd_k2b", "t5_attention_bwd.cu",
+               "ops/flash.py:614", total["core_bwd_k2b"],
+               k["core_bwd"]["k2b_train512"],
+               dk128=k["core_bwd"]["k2b_dk128"]),
+        _entry("t5_attention_core_bwd_k2a", "t5_attention_bwd.cu",
+               "ops/flash.py:353", total["core_bwd_k2a"],
+               k["core_bwd"]["k2a_L768"],
+               also_replaces=["pacednegatives_tpu/ops/flash.py:384"],
+               Lq256_Lk128=k["core_bwd"]["k2a_Lq256_Lk128"]),
+        _entry("mips_topk", "mips_topk.cu", "ops/mips.py:112",
+               total["mips_topk"], dk["k5_pools"],
+               bf16=dk["k5_bf16"], exact=dk["k5_exact"]),
+        _entry("mips_topk_int8", "mips_topk.cu", "ops/mips.py:186",
+               total["mips_topk_int8"], dk["k6_msmarco"],
+               online_shape=dk["k6_online"]),
     ], "launches_by_path": paths,
         "fused_self_attention": k["fused_self_attention"],
         "docs_per_s": {"unpacked": s["unpacked"]["docs_per_s"],
@@ -914,6 +1251,12 @@ def main() -> int:
             "step1_grad_rel_l2_median": ch["step1"]["grad_rel_l2_median"]},
         "train_chunked_768_k2a": {
             "steps_per_s": ch["k2a_run"]["steps_per_s"]},
+        "train_online_int8": {
+            "steps_per_s": dn["online"]["steps_per_s"],
+            "refresh_seconds": dn["online"]["refresh_seconds"]},
+        "build_pools": {key: dn["build_pools"][key] for key in
+                        ("seconds", "pools", "near_tie_swaps_vs_exact",
+                         "median_top1000_score_spread")},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -1,0 +1,116 @@
+"""Build difficulty-ordered negative pools: the port of cli/build_pools.py
+(compute_all_bm25 parity).
+
+The top-``cutoff`` docs of every query (queries with a short pool are
+dropped), reversed so that index 0 is the EASIEST negative. The port runs
+``--method dense``: a trained run's encoder embeds the corpus and the
+queries, and a ``DenseIndex`` answers them in batches of 64 queries with
+``--topk pallas`` (K5 on the card) or ``--topk exact``.
+
+Usage (``--device`` defaults to cuda; there is no fallback to the CPU):
+  python -m pacednegatives_tpu_torch.cli.build_pools --method dense \\
+      --run runs/out --docs docs.tsv --queries queries.tsv \\
+      --pairs pairs.tsv --out pools.jsonl --cutoff 1000 --topk pallas
+``pairs.tsv``: qid<TAB>doc_id_a rows (one positive per query); without it,
+doc_id_a is left empty for downstream joining (collate_dataset parity).
+``--method bm25`` and ``--method splade`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+from pacednegatives_tpu_torch.utils.config import parse_cli
+
+QUERY_BATCH = 64  # queries per top-k call (build_pools.py:113)
+
+
+def main(argv=None) -> str:
+    args = parse_cli(argv)
+    docs, queries = args["docs"], args["queries"]
+    out = args["out"]
+    cutoff = int(args.get("cutoff", 1000))
+    pairs_path = args.get("pairs")
+    method = args.get("method", "bm25")
+    if method == "bm25":
+        raise NotImplementedError(
+            "--method bm25 needs the native lexical index (native/, "
+            "index/bm25.py), not ported yet (ROADMAP.md slice E); use "
+            "--method dense")
+    if method == "splade":
+        raise NotImplementedError(
+            "--method splade needs models/splade.py and index/sparse.py, "
+            "not ported yet (ROADMAP.md slice R); use --method dense")
+    if method != "dense":
+        raise SystemExit(f"unknown method {method}")
+
+    from pacednegatives_tpu_torch.data import TextCorpus
+
+    corpus = TextCorpus.from_tsv(docs, queries)
+    pairs: dict[str, str] = {}
+    if pairs_path:
+        with open(pairs_path) as f:
+            for line in f:
+                qid, _, did = line.rstrip("\n").partition("\t")
+                pairs[qid] = did
+
+    n_written = n_skipped = 0
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
+        for qid, ids in _dense_pools(args, corpus, cutoff):
+            if len(ids) < cutoff:
+                # keep only full pools (compute_all_bm25.py:38-40)
+                n_skipped += 1
+                continue
+            pool = [corpus.doc_ids[d] for d in ids[:cutoff]][::-1]  # easy first
+            rec = {"query_id": qid, "doc_id_a": pairs.get(qid, ""),
+                   "doc_id_b": pool}
+            f.write(json.dumps(rec) + "\n")
+            n_written += 1
+
+    print(json.dumps({"written": n_written, "skipped_short": n_skipped,
+                      "out": out}))
+    return out
+
+
+def _dense_pools(args: dict, corpus, cutoff: int):
+    """Encode corpus and queries with a trained run's model, then MIPS
+    top-k on ``--device``; yields (qid, doc rows hardest first)."""
+    import torch
+
+    from pacednegatives_tpu_torch.data import TokenizedStore
+    from pacednegatives_tpu_torch.index import DenseIndex
+    from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
+    from pacednegatives_tpu_torch.train.runner import load_run
+
+    run_dir = args.get("run")
+    if not run_dir:
+        raise SystemExit("--method dense needs --run <trained run dir>")
+    device = torch.device(args.get("device", "cuda"))
+    params, mcfg, tok, rc = load_run(run_dir, device=device)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=rc.max_q_tokens,
+                                 max_d_tokens=rc.max_d_tokens)
+    batch = int(args.get("encode_batch", 256))
+
+    def encode(tokens, mask):
+        return encode_corpus(params, mcfg,
+                             torch.from_numpy(tokens).to(device),
+                             torch.from_numpy(mask).to(device),
+                             batch_size=batch)
+
+    d_emb = encode(store.d_tokens, store.d_mask)
+    q_emb = encode(store.q_tokens, store.q_mask)
+    index = DenseIndex.build(d_emb, method=args.get("topk", "exact"),
+                             device=device)
+    k = min(cutoff, corpus.num_docs)
+    for s in range(0, corpus.num_queries, QUERY_BATCH):
+        e = min(s + QUERY_BATCH, corpus.num_queries)
+        _, idx = index.topk(q_emb[s:e], k)
+        idx = idx.cpu().numpy()
+        for row, qid in enumerate(corpus.query_ids[s:e]):
+            yield qid, idx[row]
+
+
+if __name__ == "__main__":
+    main()

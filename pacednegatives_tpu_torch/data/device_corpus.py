@@ -173,17 +173,21 @@ class DeviceCorpus:
         }
 
     def lce_batch(self, generator: torch.Generator, pair_idx: torch.Tensor,
-                  difficulty, n: int):
+                  difficulty, n: int, pools: torch.Tensor | None = None):
         """LCE batch: n binomially-sampled negatives per pair, drawn with
         ``generator`` (reference LCEDataset.__getitem__ + collate). Negative
-        prompts are (B*n, L) in example-major order."""
+        prompts are (B*n, L) in example-major order. ``pools``: (B, P) doc
+        rows easiest first for these pairs (online mining); default the
+        stored pools."""
         B = pair_idx.shape[0]
         q = self.query_rows[pair_idx]
         pos_d = self.pos_rows[pair_idx]
+        pools = self.pools[pair_idx] if pools is None else pools
+        P = pools.shape[1]
         means = torch.as_tensor(difficulty, dtype=torch.float32,
                                 device=self.device).expand(B)
-        slots = sample_pool_indices_batch(generator, self.n_neg, means, n)
-        neg_d = torch.gather(self.pools[pair_idx], 1, slots)  # (B, n)
+        slots = sample_pool_indices_batch(generator, P, means, n)
+        neg_d = torch.gather(pools, 1, slots)  # (B, n)
         pos_ids, pos_mask = self.assemble(q, pos_d)
         neg_ids, neg_mask = self.assemble(q.repeat_interleave(n),
                                           neg_d.reshape(-1))
@@ -194,5 +198,5 @@ class DeviceCorpus:
             "neg_ids": neg_ids,
             "neg_mask": neg_mask,
             "neg_labels": self.labels(B * n, False),
-            "neg_rank": (slots.float() / max(self.n_neg - 1, 1)).reshape(-1),
+            "neg_rank": (slots.float() / max(P - 1, 1)).reshape(-1),
         }

@@ -1,10 +1,11 @@
 """monoT5 reranking of a first-stage run: the port of eval/rerank.py.
 
 Takes a first-stage run {qid: [doc_id, ...]}, scores every (query, doc)
-prompt with the model in fixed-size batches on ``device``, and returns each
-query's candidates ordered by score. Host-side prompt assembly, padding,
-packing and length bucketing are the JAX ``Reranker``'s, line for line, so
-the two packages batch the same pairs at the same lengths.
+prompt with the model in fixed-size batches on ``device`` (default cuda),
+and returns each query's candidates ordered by score. Host-side prompt
+assembly, padding, packing and length bucketing are the JAX
+``Reranker``'s, line for line, so the two packages batch the same pairs at
+the same lengths.
 """
 
 from __future__ import annotations
@@ -57,10 +58,15 @@ class Reranker:
     # that fits its longest pair (pairs sorted by true length first).
     # None = always the full prompt length.
     bucket_lens: tuple[int, ...] | None = None
-    device: torch.device | str = "cpu"
+    # the card unless the caller asks for the CPU; there is no fallback
+    device: torch.device | str = "cuda"
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Reranker(device='cuda'): torch.cuda.is_available() is "
+                "false; pass device='cpu' to score on the CPU")
         self.params = serving_params(self.params, self.cfg, self.device)
 
     def _score(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:

@@ -24,7 +24,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu")
+SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu",
+           "mips_topk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,6 +62,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # q, docs, scales, cand_v, cand_i, B, N, D, block_n, k_per_block,
+    # doc_type (0 fp32, 1 bf16, 2 int8), device, stream
+    "pnt_mips_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -6,6 +6,8 @@
 - ``gemm``: the bf16 projection GEMM, ``csrc/gemm_bf16.cu``;
 - ``flash_v3``: the fused self-attention block, forward (K3) and backward
   (K4), built from both, with its autograd Function;
+- ``mips``: blockwise MIPS top-k over fp32 / bf16 docs (K5) and an int8
+  index (K6), ``csrc/mips_topk.cu``, and the exact and streaming paths;
 - ``losses`` and ``sampling``: the training losses and the paced negative
   sampler (plain PyTorch, as the JAX package leaves them to XLA).
 """

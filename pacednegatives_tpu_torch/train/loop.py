@@ -240,28 +240,9 @@ class TrainLoop:
             chunk_i += 1
 
             if chunk_i % self.log_every_chunks == 0:
-                host = {k: torch.stack([r[k] for r in rows]).float().cpu()
-                        .numpy() for k in rows[0]}
-                sps = done_per_sec(done - start_step, t0)
-                if self.log_mode == "all":
-                    for t in range(n):
-                        row = {k: v[t] for k, v in host.items()}
-                        if t == n - 1:
-                            row["steps_per_sec"] = sps
-                        writer.write({"step": done - n + 1 + t, **row})
-                elif self.log_mode == "mean":
-                    writer.write({
-                        "step": done,
-                        **{k: v.mean() for k, v in host.items()},
-                        "steps_per_sec": sps,
-                    })
-                else:
-                    writer.write({
-                        "step": done,
-                        **{k: v[-1] for k, v in host.items()},
-                        "steps_per_sec": sps,
-                    })
-                writer.flush()
+                write_chunk_metrics(writer, rows, done,
+                                    done_per_sec(done - start_step, t0),
+                                    self.log_mode)
 
             if (
                 self.checkpoint_dir
@@ -293,3 +274,26 @@ class TrainLoop:
 def done_per_sec(steps: int, t0: float) -> float:
     dt = time.time() - t0
     return steps / dt if dt > 0 else 0.0
+
+
+def write_chunk_metrics(writer: MetricWriter, rows: list[dict], done: int,
+                        sps: float, log_mode: str) -> None:
+    """Write one chunk's per-step metric dicts (read from the device once)
+    ending at step ``done``: every step ("all"), their mean ("mean") or
+    the last ("last"); ``steps_per_sec`` goes on the chunk's last row."""
+    n = len(rows)
+    host = {k: torch.stack([r[k] for r in rows]).float().cpu().numpy()
+            for k in rows[0]}
+    if log_mode == "all":
+        for t in range(n):
+            row = {k: v[t] for k, v in host.items()}
+            if t == n - 1:
+                row["steps_per_sec"] = sps
+            writer.write({"step": done - n + 1 + t, **row})
+    elif log_mode == "mean":
+        writer.write({"step": done, **{k: v.mean() for k, v in host.items()},
+                      "steps_per_sec": sps})
+    else:
+        writer.write({"step": done, **{k: v[-1] for k, v in host.items()},
+                      "steps_per_sec": sps})
+    writer.flush()

@@ -1,16 +1,19 @@
 """One config -> one training run: the port of train/runner.py.
 
 ``RunConfig`` has the JAX package's fields and defaults. ``run`` ports the
-LCE curriculum on static pools (``curriculum="lce"``, ``mining="static"``,
-``scored_pool=0``) with fp32 AdamW; dense attention with the fused
-self-attention kernels (``flash_v3``), or chunked attention with the
-attention-core kernels (``flash_kernel``) and either residual dtype; and an
-fp32 or bf16 gradient-accumulation carry. Every other value of a field that
+LCE curriculum (``curriculum="lce"``, ``scored_pool=0``) with fp32 AdamW,
+on static pools or with online negative mining from a dense index
+(``mining="online"``: train/online.py, K6 over an int8 index with
+``quantize_index``); dense attention with the fused self-attention kernels
+(``flash_v3``), or chunked attention with the attention-core kernels
+(``flash_kernel``) and either residual dtype; and an fp32 or bf16
+gradient-accumulation carry. Every other value of a field that
 would change what runs raises ``NotImplementedError`` naming its ROADMAP
 item: nothing is silently ignored. ``microbatch_unroll`` unrolls the JAX
 package's lax.scan and changes no result; the port's microbatch loop is a
 Python loop, so both values run the same code. ``run`` takes an explicit
-device and never falls back from CUDA to the CPU.
+device and never falls back from CUDA to the CPU. ``load_run`` reloads a
+run directory written by ``run``.
 """
 
 from __future__ import annotations
@@ -170,7 +173,6 @@ class RunConfig:
 # values this slice does not port
 _UNPORTED = (
     ("curriculum", "lce", "slice C (interp, level, eta, contrast, meta)"),
-    ("mining", "static", "slice D (online mining)"),
     ("scored_pool", 0, "slice P (model-in-the-loop negative selection)"),
     ("ffn_custom_vjp", False, "slice T2 (the ReLU-FFN custom VJP)"),
     ("dropout", False, "slice T2 (dropout)"),
@@ -208,8 +210,8 @@ def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "run(device='cuda'): torch.cuda.is_available() is false; pass "
-            "device='cpu' to train on the CPU (there is no silent fallback)"
+            "device='cuda': torch.cuda.is_available() is false; pass "
+            "device='cpu' to run on the CPU (there is no silent fallback)"
         )
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {device}")
@@ -377,6 +379,33 @@ def _make_eval_fn(cfg: RunConfig, store, triples, mcfg, tok, device):
     return eval_fn
 
 
+def load_run(run_dir: str, checkpoint: str = "final",
+             device: torch.device | str = "cuda"):
+    """Reload a run directory written by ``run`` (its ``config.json`` and
+    ``torch.save`` checkpoint) -> (params, model_cfg, tokenizer,
+    RunConfig), the weights on ``device`` (the card unless asked for the
+    CPU). Strict: a checkpoint that does not fit the config raises."""
+    from pacednegatives_tpu_torch.train.loop import restore_checkpoint
+    from pacednegatives_tpu_torch.train.state import (
+        init_train_state,
+        make_optimizer,
+    )
+
+    device = _device(device)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = RunConfig(**json.load(f))
+    tok = _build_tokenizer(cfg)
+    params, mcfg = _build_model(cfg, tok, device)
+    opt_steps, warmup = _opt_steps(cfg)
+    tx = make_optimizer(cfg.lr, opt_steps, warmup, grad_clip=cfg.grad_clip,
+                        grad_accum_steps=cfg.grad_accum_steps)
+    template = init_train_state(
+        params, tx, _build_controller(cfg, tok.vocab_size).init(device),
+        seed=cfg.seed)
+    state = restore_checkpoint(os.path.join(run_dir, checkpoint), template)
+    return state.params, mcfg, tok, cfg
+
+
 def _maybe_resume(cfg: RunConfig, state):
     """resume_from: a checkpoint path, or "auto" for the newest one in
     out_dir (crash restart)."""
@@ -453,16 +482,12 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
                              seed=cfg.seed)
     state = _maybe_resume(cfg, state)
     held_out = cfg.eval_every_steps > 0
-    loop = TrainLoop(
-        fused_step=make_fused_step(dc, step, controller, loss="lce",
-                                   n_neg_per_example=cfg.n),
+    common = dict(
         corpus=dc,
         num_pairs=len(triples),
         batch_size=cfg.batch_size,
         chunk_size=cfg.chunk_size,
         seed=cfg.seed,
-        shuffle=cfg.shuffle,
-        log_every_chunks=cfg.log_every_chunks,
         log_mode=cfg.log_mode,
         checkpoint_dir=cfg.out_dir,
         checkpoint_every_steps=cfg.checkpoint_every_steps,
@@ -472,6 +497,36 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
         exclude_pairs=(tuple(_eval_selection(cfg, triples))
                        if held_out else ()),
     )
+    if cfg.mining == "online":
+        from pacednegatives_tpu_torch.train.online import (
+            OnlineMiningConfig,
+            OnlineMiningLoop,
+            make_online_fused_step,
+            make_refresh_fn,
+        )
+
+        mining = OnlineMiningConfig(pool_size=cfg.pool_size,
+                                    encode_batch=cfg.encode_batch,
+                                    quantize=cfg.quantize_index)
+        loop = OnlineMiningLoop(
+            fused_step=make_online_fused_step(dc, step, controller, mcfg,
+                                              mining, n_neg_per_example=cfg.n),
+            refresh_fn=make_refresh_fn(dc, mcfg, mining),
+            refresh_every=cfg.refresh_every,
+            checkpoint_index=cfg.checkpoint_index,
+            **common,
+        )
+    elif cfg.mining == "static":
+        loop = TrainLoop(
+            fused_step=make_fused_step(dc, step, controller, loss="lce",
+                                       n_neg_per_example=cfg.n),
+            shuffle=cfg.shuffle,
+            log_every_chunks=cfg.log_every_chunks,
+            **common,
+        )
+    else:
+        raise ValueError(f"mining must be 'static' or 'online', "
+                         f"got {cfg.mining!r}")
     state = loop.run(state, opt_steps, writer)
     save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
     writer.close()

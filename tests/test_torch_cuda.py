@@ -22,7 +22,7 @@ from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
-from pacednegatives_tpu_torch.ops import flash, flash_v3, gemm
+from pacednegatives_tpu_torch.ops import flash, flash_v3, gemm, mips
 from pacednegatives_tpu_torch.train import (
     init_train_state,
     make_optimizer,
@@ -398,3 +398,110 @@ def test_chunked_step_kernels_match_plain(cuda):
     rel = [((mu_on[k] - b).norm() / b.norm()).item()
            for k, b in mu_off.items() if b.norm() > 0]
     assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: blockwise MIPS top-k (csrc/mips_topk.cu)
+# ---------------------------------------------------------------------------
+
+
+def _mips_inputs(g, B, N, D, dtype):
+    q = torch.randn((B, D), generator=g, device="cuda")
+    docs = torch.randn((N, D), generator=g, device="cuda")
+    if dtype == "int8":
+        vals, scales = mips.quantize_embeddings(docs)
+        return q, (vals, scales)
+    return q, (docs.to(torch.bfloat16) if dtype == "bf16" else docs,)
+
+
+def _mips_pair(dtype):
+    if dtype == "int8":
+        return (mips.mips_topk_pallas_quantized,
+                mips.mips_topk_pallas_quantized_plain)
+    return mips.mips_topk_pallas, mips.mips_topk_pallas_plain
+
+
+# ragged query tiles (B 20 = 16 + 4), a block that is not a multiple of the
+# kernel's 128-doc chunk (384), k' < k and k' = k, and the 1024-long list
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("B,N,D,k,block_n,kpb", [
+    (20, 1536, 64, 16, 384, 5), (3, 1024, 96, 40, 256, None),
+    (16, 2048, 768, 129, 1024, 32), (5, 2048, 64, 1000, 1024, None),
+])
+def test_mips_topk_matches_plain(cuda, dtype, B, N, D, k, block_n, kpb):
+    q, docs = _mips_inputs(cuda, B, N, D, dtype)
+    fn, plain = _mips_pair(dtype)
+    before = fn.launches
+    v, i = fn(q, *docs, k, block_n=block_n, k_per_block=kpb)
+    again = fn(q, *docs, k, block_n=block_n, k_per_block=kpb)
+    rv, ri = plain(q, *docs, k, block_n=block_n, k_per_block=kpb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(v, again[0]) and torch.equal(i, again[1])  # bitwise
+    # fp32 sums in another order: D terms, |q| ~ |d| ~ sqrt(D)
+    tol = D * 2.0**-23 * D
+    assert (v - rv).abs().max().item() <= tol
+    assert i.dtype == torch.int64
+    # indices equal, except near-ties: where they differ, the kernel's doc
+    # scores (plain arithmetic) within tol of the plain version's there
+    rows, cols = (i != ri).nonzero(as_tuple=True)
+    if len(rows):
+        s = mips.block_scores(q, *(t[i[rows, cols]] for t in docs))
+        s = s[rows, torch.arange(len(rows), device=s.device)]
+        assert (s - rv[rows, cols]).abs().max().item() <= tol
+    assert len(rows) <= 0.01 * i.numel()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_mips_topk_ties_lower_index_first(cuda, dtype):
+    """Duplicated rows inside one block and across blocks tie exactly; the
+    kernel lists them in ascending index order, as the plain version."""
+    B, N, D = 4, 1024, 64
+    q = torch.randn((B, D), generator=cuda, device="cuda")
+    docs = torch.randn((N, D), generator=cuda, device="cuda")
+    dup = (37, 306, 313, 868)  # blocks 0, 1, 1, 3 of 256
+    docs[list(dup)] = q[0]  # query 0's best match by far
+    args = {"fp32": lambda: (docs,),
+            "bf16": lambda: (docs.to(torch.bfloat16),),
+            "int8": lambda: mips.quantize_embeddings(docs)}[dtype]()
+    fn, plain = _mips_pair(dtype)
+    v, i = fn(q, *args, 16, block_n=256, k_per_block=5)
+    rv, ri = plain(q, *args, 16, block_n=256, k_per_block=5)
+    assert tuple(i[0, :4].tolist()) == dup == tuple(ri[0, :4].tolist())
+    assert torch.equal(i, ri)
+
+
+def test_mips_topk_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros((2, 24), device="cuda")
+    with pytest.raises(ValueError, match="D % 16"):
+        mips.mips_topk_pallas(q, torch.zeros((256, 24), device="cuda"), 4,
+                              block_n=256)
+    q = torch.zeros((2, 32), device="cuda")
+    with pytest.raises(ValueError, match="k'"):
+        mips.mips_topk_pallas(q, torch.zeros((4096, 32), device="cuda"),
+                              2000, block_n=4096)
+    with pytest.raises(ValueError, match="multiple of block_n"):
+        mips.mips_topk_pallas(q, torch.zeros((1000, 32), device="cuda"), 4,
+                              block_n=256)
+
+
+@pytest.mark.parametrize("rows,k6", [(4096, True), (3000, False)])
+def test_online_mining_dispatch(cuda, rows, k6):
+    """The online step's dispatch (online.py:119-145): K6 on the card for a
+    block-aligned int8 index, the exact streaming path for any other row
+    count; the pools agree with the plain version of what ran."""
+    from pacednegatives_tpu_torch.train import online
+
+    mining = online.OnlineMiningConfig(pool_size=64, quantize=True)
+    q = torch.randn((16, 64), generator=cuda, device="cuda")
+    index = mips.quantize_embeddings(
+        torch.randn((rows, 64), generator=cuda, device="cuda"))
+    before = mips.mips_topk_pallas_quantized.launches
+    idx = online.mine_top(q, index, 65, mining)
+    assert mips.mips_topk_pallas_quantized.launches - before == int(k6)
+    if k6:  # block 4096, k' 32, as the JAX step tiles it
+        _, ref = mips.mips_topk_pallas_quantized_plain(
+            q, *index, 65, block_n=4096, k_per_block=32)
+    else:
+        _, ref = mips.mips_topk_quantized_streaming(q, *index, 65)
+    assert idx.shape == (16, 65) and torch.equal(idx, ref)

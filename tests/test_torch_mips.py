@@ -1,0 +1,194 @@
+"""The port's MIPS top-k (pacednegatives_tpu_torch/ops/mips.py) against the
+JAX package's, on the CPU: the plain versions of K5 and K6 against the
+Pallas kernels in interpret mode (as tests/test_index.py runs them), the
+tie order on duplicate doc rows, and the non-kernel paths.
+
+Each Pallas call in interpret mode costs ~1.3 s, so the six cases below are
+the only ones, each computed once and shared by the tests of this file.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pacednegatives_tpu.ops import mips as jmips
+from pacednegatives_tpu_torch.ops import mips
+
+N, D, B, BLOCK, K = 1024, 64, 8, 256, 16
+# tolerance: fp32 sums of 64 products in another order (and XLA's dot
+# against torch's), far below 1e-5 of the largest score
+VAL_RTOL = 1e-5
+
+
+@functools.cache
+def _data():
+    """Gaussian docs and queries with planted duplicate rows: doc ``a``
+    (block 1) is query 0 itself, its best match by far (|q|^2 ~ 64 against
+    gaussian scores of std 8), copied to a + 7 (same block) and into blocks
+    0 and 3, so four docs tie at the top of query 0's list."""
+    rng = np.random.default_rng(0)
+    docs = rng.normal(size=(N, D)).astype(np.float32)
+    q = rng.normal(size=(B, D)).astype(np.float32)
+    a = BLOCK + 50
+    copies = (37, a + 7, 3 * BLOCK + 100)
+    for c in (a, *copies):
+        docs[c] = q[0]
+    return q, docs, tuple(sorted((a, *copies)))
+
+
+def _docs(dtype: str) -> np.ndarray:
+    _, docs, _ = _data()
+    if dtype == "bf16":  # values exactly representable in bf16 on both sides
+        return np.array(jnp.asarray(docs, jnp.bfloat16).astype(jnp.float32))
+    return docs
+
+
+@functools.cache
+def _jax_k5(dtype: str, kpb: int):
+    q, _, _ = _data()
+    jd = jnp.asarray(_docs(dtype),
+                     jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    v, i = jmips.mips_topk_pallas(jnp.asarray(q), jd, K, block_n=BLOCK,
+                                  k_per_block=kpb, interpret=True)
+    return np.asarray(v), np.asarray(i)
+
+
+@functools.cache
+def _jax_k6(kpb: int):
+    q, docs, _ = _data()
+    vals, scales = jmips.quantize_embeddings(jnp.asarray(docs))
+    v, i = jmips.mips_topk_pallas_quantized(
+        jnp.asarray(q), vals, scales, K, block_n=BLOCK, k_per_block=kpb,
+        interpret=True)
+    return np.asarray(v), np.asarray(i), np.array(vals), np.array(scales)
+
+
+def _torch_k5(dtype: str, kpb: int):
+    q, _, _ = _data()
+    td = torch.from_numpy(_docs(dtype))
+    if dtype == "bf16":
+        td = td.to(torch.bfloat16)
+    before = mips.mips_topk_pallas.launches
+    v, i = mips.mips_topk_pallas(torch.from_numpy(q), td, K, block_n=BLOCK,
+                                 k_per_block=kpb)
+    assert mips.mips_topk_pallas.launches == before  # the CPU runs plain
+    return v.numpy(), i.numpy()
+
+
+def _torch_k6(kpb: int, vals: np.ndarray, scales: np.ndarray):
+    q, _, _ = _data()
+    v, i = mips.mips_topk_pallas_quantized(
+        torch.from_numpy(q), torch.from_numpy(vals), torch.from_numpy(scales),
+        K, block_n=BLOCK, k_per_block=kpb)
+    return v.numpy(), i.numpy()
+
+
+def _assert_same(got, want):
+    (v, i), (jv, ji) = got, want
+    assert i.dtype == np.int64 and v.shape == jv.shape == (B, K)
+    np.testing.assert_allclose(v, jv, rtol=0,
+                               atol=VAL_RTOL * np.abs(jv).max())
+    np.testing.assert_array_equal(i, ji)
+
+
+# k' = K is exact; k' = 5 < K is the near-exact blockwise function
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("kpb", [K, 5])
+def test_k5_plain_matches_pallas(dtype, kpb):
+    _assert_same(_torch_k5(dtype, kpb), _jax_k5(dtype, kpb))
+
+
+@pytest.mark.parametrize("kpb", [K, 5])
+def test_k6_plain_matches_pallas(kpb):
+    jv, ji, vals, scales = _jax_k6(kpb)
+    _assert_same(_torch_k6(kpb, vals, scales), (jv, ji))
+
+
+@pytest.mark.parametrize("kernel", ["k5_fp32", "k5_bf16", "k6"])
+def test_duplicate_rows_lower_index_first(kernel):
+    """Four copies of one doc (two in one block, two in other blocks) tie
+    exactly; both packages list them first, in ascending index order."""
+    _, _, dup = _data()
+    if kernel == "k6":
+        jv, ji, vals, scales = _jax_k6(5)
+        tv, ti = _torch_k6(5, vals, scales)
+    else:
+        dtype = kernel.split("_")[1]
+        (jv, ji), (tv, ti) = _jax_k5(dtype, 5), _torch_k5(dtype, 5)
+    for v, i in ((jv, ji), (tv, ti)):
+        assert tuple(i[0, :4]) == dup
+        assert len(set(v[0, :4].tolist())) == 1 and v[0, 4] < v[0, 0]
+
+
+def test_topk_stable_ties_to_lower_position():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]])
+    v, i = mips.topk_stable(x, 4)
+    assert i.tolist() == [[1, 2, 4, 3]] and v.tolist() == [[3, 3, 3, 2]]
+
+
+def test_quantize_embeddings_bitwise_equal_to_jax():
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=(300, 48)).astype(np.float32)
+    emb[7] = 0.0  # an all-zero row takes the 1e-8 floor
+    jv, js = jmips.quantize_embeddings(jnp.asarray(emb))
+    tv, ts = mips.quantize_embeddings(torch.from_numpy(emb))
+    assert tv.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_streaming_and_exact_match_jax():
+    rng = np.random.default_rng(11)
+    n, d, b, k = 1000 + 37, 32, 5, 20  # 1037 % 256 != 0: the ragged tail
+    docs = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    jvals, jscales = jmips.quantize_embeddings(jnp.asarray(docs))
+    jv, ji = jmips.mips_topk_quantized_streaming(jnp.asarray(q), jvals,
+                                                 jscales, k, block_rows=256)
+    tv, ti = mips.mips_topk_quantized_streaming(
+        torch.from_numpy(q), torch.from_numpy(np.array(jvals)),
+        torch.from_numpy(np.array(jscales)), k, block_rows=256)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    for dt, tdt in ((jnp.float32, torch.float32),
+                    (jnp.bfloat16, torch.bfloat16)):
+        jd = jnp.asarray(docs, dt)
+        ev, ei = jmips.mips_topk_exact(jnp.asarray(q), jd, k)
+        td = torch.from_numpy(np.array(jd.astype(jnp.float32))).to(tdt)
+        tv, ti = mips.mips_topk_exact(torch.from_numpy(q), td, k)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(ev), rtol=1e-5)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ei))
+
+
+@pytest.mark.parametrize("fn", ["k5", "k6"])
+def test_wrappers_reject_unaligned_rows(fn):
+    q = torch.zeros((2, 16))
+    if fn == "k5":
+        with pytest.raises(ValueError, match="multiple of block_n"):
+            mips.mips_topk_pallas(q, torch.zeros((1000, 16)), 8,
+                                  block_n=256)
+    else:
+        with pytest.raises(ValueError, match="multiple of block_n"):
+            mips.mips_topk_pallas_quantized(
+                q, torch.zeros((1000, 16), dtype=torch.int8),
+                torch.ones(1000), 8, block_n=256)
+
+
+def test_k_per_block_raised_for_the_merge():
+    """One 256-row block with k 40 > k' 8: k' is raised to ceil(k / nb) =
+    40 so the merge has k candidates (mips.py:107-109)."""
+    rng = np.random.default_rng(5)
+    docs = torch.from_numpy(rng.normal(size=(256, 16)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    v, i = mips.mips_topk_pallas(q, docs, 40, block_n=256, k_per_block=8)
+    ev, ei = mips.mips_topk_exact(q, docs, 40)
+    assert torch.equal(i, ei) and torch.equal(v, ev)
+
+
+def test_approx_is_not_carried_over():
+    with pytest.raises(NotImplementedError, match="approx_max_k"):
+        mips.mips_topk_approx(torch.zeros((1, 4)), torch.zeros((8, 4)), 2)

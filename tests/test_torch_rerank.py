@@ -148,3 +148,12 @@ def test_serving_params_are_fused_and_cast(jparams):
     assert flat["shared.embedding"].dtype == torch.bfloat16
     assert flat["encoder.block_0.self_attn.rel_bias"].dtype == torch.float32
     assert flat["encoder.block_0.ln_self.scale"].dtype == torch.float32
+
+
+def test_reranker_runs_on_the_card_unless_asked(monkeypatch):
+    """The serving entry point defaults to cuda and never falls back to
+    the CPU: without a card it raises, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config_from_jax(JCFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Reranker({}, cfg, None, None, rel_id=3, nrel_id=4)

@@ -11,7 +11,9 @@ Phases, one JSON line each (any failure exits non-zero):
 2. build   - compile the CUDA kernels from pacednegatives_tpu_torch/csrc;
 3. kernels - each kernel against its plain PyTorch version on the card at
              the serving and training shapes: max |diff| against the stated
-             tolerance, median kernel and plain times; the fused block's
+             tolerance, median kernel and plain times; the GEMM at the
+             serving, training and refresh rows, each beside torch.matmul;
+             the fused block's
              backward (K4) also at L 512 / dk 128; the chunked path's
              backward kernels K2b (at its L 512 training shape and at
              dk 128) and K2a (at its L 768 training shape, and at
@@ -40,6 +42,8 @@ Phases, one JSON line each (any failure exits non-zero):
              1M-row fp32 index at k' = 1000, bf16 docs, k' = k against an
              exact top-k): values within an fp32 summation-order bound,
              indices equal except near-tie swaps, two runs bitwise equal;
+             the kernels' launch and the merge timed apart, and at k' = k
+             the per-block selection beside the one over long runs;
              then ``cli.train.main`` with online mining over an int8 index
              of 16,384 docs (K6 once a step, two refreshes), and
              ``cli.build_pools.main --method dense`` on that run (K5 once
@@ -97,6 +101,7 @@ from pacednegatives_tpu_torch.ops.flash_v3 import (
     v3_backward_plain,
     v3_forward,
 )
+from pacednegatives_tpu_torch.ops import mips
 from pacednegatives_tpu_torch.ops.gemm import gemm, gemm_plain
 from pacednegatives_tpu_torch.ops.mips import (
     block_scores,
@@ -314,26 +319,32 @@ def phase_kernels() -> dict:
     M = B_SERVE * L_SERVE
     results = {}
 
-    # GEMM, at the two projections of one layer. Tolerance: both round an
-    # fp32 sum to bf16; the sums differ only in order, so a result may
-    # differ by one bf16 ulp, at most 2^-7 of |C|max.
-    a = _randn(g, M, D)
+    # GEMM, at the two projections of one layer, at the serving block's
+    # rows (256 x 188), a training step's (128 x 188) and a refresh
+    # batch's (128 x 160). Tolerance: both round an fp32 sum to bf16; the
+    # sums differ only in order, so a result may differ by one bf16 ulp, at
+    # most 2^-7 of |C|max.
     gemm_rows = {}
-    for label, n, scale in (("qkv", 3 * inner, D**-0.5), ("o", D, inner**-0.5)):
-        w = _randn(g, D if label == "qkv" else inner, n, scale=scale)
-        ref = gemm_plain(a, w)
-        err = max_abs(gemm(a, w), ref)
-        tol = BF16_ULP_REL * ref.float().abs().max().item()
-        K = a.shape[1]
-        gemm_rows[label] = check(
-            f"gemm_{label}", err, tol, shape=[M, K, n],
-            ms=time_ms(lambda: gemm(a, w)),
-            plain_ms=time_ms(lambda: gemm_plain(a, w)),
-            # the yardstick: one cuBLAS product (the plain version is the
-            # same call)
-            library_ms=time_ms(lambda: torch.matmul(a, w)),
-            **bound(2 * (M * K + K * n + M * n), 2 * M * K * n, "bf16"),
-        )
+    for prefix, rows in (("", M), ("train_", ROWS_TRAIN * L_SERVE),
+                         ("refresh_", 128 * 160)):
+        a = _randn(g, rows, D)
+        for label, n, scale in (("qkv", 3 * inner, D**-0.5),
+                                ("o", D, inner**-0.5)):
+            w = _randn(g, D if label == "qkv" else inner, n, scale=scale)
+            ref = gemm_plain(a, w)
+            err = max_abs(gemm(a, w), ref)
+            tol = BF16_ULP_REL * ref.float().abs().max().item()
+            K = a.shape[1]
+            gemm_rows[prefix + label] = check(
+                f"gemm_{prefix}{label}", err, tol, shape=[rows, K, n],
+                ms=time_ms(lambda: gemm(a, w)),
+                plain_ms=time_ms(lambda: gemm_plain(a, w)),
+                # the yardstick: one cuBLAS product (the plain version is
+                # the same call)
+                library_ms=time_ms(lambda: torch.matmul(a, w)),
+                **bound(2 * (rows * K + K * n + rows * n),
+                        2 * rows * K * n, "bf16"),
+            )
     results["gemm"] = gemm_rows
 
     # Attention core. Tolerances: out (fp32 here) <= 2e-2 absolute at
@@ -400,6 +411,7 @@ def phase_kernels() -> dict:
         check(f"attention_{label}_m", max_abs(m, rm), 1e-3)
         check(f"attention_{label}_l_rel", ((l - rl).abs() / rl).max().item(),
               1e-3)
+        mask = (pos[None] + km[:, None, None, :]).to(torch.bfloat16)
         att[f"{label}_fp32_out"] = check(
             f"attention_{label}_out", max_abs(o, ref), 2e-2,
             shape=[B, H, L, dk],
@@ -407,7 +419,16 @@ def phase_kernels() -> dict:
                                                        torch.float32)),
             plain_ms=time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, pos, km, torch.float32)),
+            # the yardstick as above (its output is bf16, not fp32)
+            library_ms=time_ms(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, attn_mask=mask, scale=1.0)),
+            # q, k, v in (bf16), out (fp32); pos, key mask in, (m, l) out
+            **bound(3 * B * H * L * dk * 2 + B * H * L * dk * 4
+                    + H * L * L * 4 + B * L * 4 + 2 * B * H * L * 4,
+                    4 * B * H * L * L * dk, "bf16"),
         )
+        del mask
     results["attention"] = att
     # K2b and K2a at the shapes of phase 6's runs (several dpos groups of
     # DPOS_ROWS_PER_GROUP rows each), plus dk 128 and Lq != Lk
@@ -432,12 +453,21 @@ def phase_kernels() -> dict:
     km = _key_mask(g, B_SERVE, L_SERVE)
     args = (x, wqkv, wo, pos3, km)
     ref = fused_self_attention_plain(*args)
+    rows = B_SERVE * L_SERVE
     results["fused_self_attention"] = check(
         "fused_self_attention", max_abs(fused_self_attention(*args), ref),
         4 * BF16_ULP_REL * ref.float().abs().max().item(),
         shape=[B_SERVE, L_SERVE, D],
         ms=time_ms(lambda: fused_self_attention(*args)),
         plain_ms=time_ms(lambda: fused_self_attention_plain(*args)),
+        library_ms=None,  # no single PyTorch call computes the block
+        # the whole call (K3): x, Wqkv, Wo in and y out (bf16); pos, key
+        # mask in and (m, l) out (fp32); both projections and the core
+        **bound(2 * (2 * rows * D + D * 3 * inner + inner * D)
+                + H * L_SERVE**2 * 4 + B_SERVE * L_SERVE * 4
+                + 2 * B_SERVE * H * L_SERVE * 4,
+                2 * rows * D * 4 * inner
+                + 4 * B_SERVE * H * L_SERVE**2 * dk, "bf16"),
     )
     results["v3_backward"] = {
         label: _check_k4(g, label, *shape)
@@ -519,6 +549,15 @@ def _check_k4(g, label, B, L, H, dk) -> dict:
                 + 2 * B * H * L * 4, 6 * 2 * B * H * L * L * dk, "bf16"),
         "k4_ms": time_ms(lambda: v3_backward(*args)),
         "k4_plain_ms": time_ms(lambda: v3_backward_plain(*args)),
+        # the whole call (K4): x, Wqkv, d_attn in and dqkv, attn out
+        # (bf16); pos, key mask, m, l in and dpos out (fp32); the qkv
+        # recompute's GEMM and the core's six products
+        **{"k4_" + key: val for key, val in bound(
+            2 * (B * L * D + D * 3 * inner + 2 * B * L * inner
+                 + B * L * 3 * inner)
+            + 2 * H * L * L * 4 + B * L * 4 + 2 * B * H * L * 4,
+            2 * B * L * D * 3 * inner + 6 * 2 * B * H * L * L * dk,
+            "bf16").items()},
     }
 
 
@@ -1034,9 +1073,30 @@ def _check_mips(g, case: str, kind: str, shape: tuple, exact: bool = False,
     esize = index[0].element_size()
     nbytes = (N * D * esize + (N * 4 if kind == "int8" else 0) + B * D * 4
               + B * k * (4 + 8))
+    # the wrapper's two parts apart: the kernel's launch alone (operand
+    # checks and allocations included), and the merge of its candidates
+    operands = index if kind == "int8" else (index[0], None)
+    launch = lambda: mips._kernel_candidates(q, *operands, k, block_n, kpb,
+                                             fn.__name__)
+    cands = launch()
+    kernel_ms = time_ms(launch, warmup=2, reps=10)
+    merge_ms = time_ms(lambda: mips._merge_keys(cands, k), warmup=2, reps=10)
+    split = {}
+    if kind != "int8" and kpb is None and k <= block_n:
+        # k' = k: the wrapper selects over long runs of rows; the same
+        # function with the blocks as the segments, timed beside it
+        per_block = lambda: mips._kernel_candidates(
+            q, *operands, k, block_n, kpb, fn.__name__, fold=False)
+        cands = per_block()
+        split = dict(
+            per_block_kernel_ms=time_ms(per_block, warmup=2, reps=10),
+            per_block_merge_ms=time_ms(lambda: mips._merge_keys(cands, k),
+                                       warmup=2, reps=10))
+    del cands
     fields = dict(
         shape=[B, N, D, k, block_n, kpb], doc_type=kind,
         near_tie_swaps=agree["near_tie_swaps"], bitwise_repeat=bitwise,
+        kernel_ms=kernel_ms, merge_ms=merge_ms, **split,
         ms=time_ms(run, warmup=2, reps=10),
         plain_ms=time_ms(ref_fn, warmup=1, reps=3),
         library_ms=_mips_library_ms(q, index, k) if library else None,
@@ -1181,7 +1241,10 @@ def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
             "launches": launches,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "shape")},
+                                       "shape", "kernel_ms", "merge_ms",
+                                       "per_block_kernel_ms",
+                                       "per_block_merge_ms")
+               if key in r},
             **extra}
 
 
@@ -1206,7 +1269,9 @@ def main() -> int:
         _entry("gemm_bf16", "gemm_bf16.cu", "ops/flash_v3.py:147",
                total["gemm"], k["gemm"]["qkv"],
                also_replaces=["pacednegatives_tpu/ops/flash_v3.py:279"],
-               o_projection=k["gemm"]["o"]),
+               o_projection=k["gemm"]["o"],
+               **{label: k["gemm"][label] for label in (
+                   "train_qkv", "train_o", "refresh_qkv", "refresh_o")}),
         _entry("t5_attention_fwd", "t5_attention_fwd.cu", "ops/flash.py:121",
                total["attention"], k["attention"]["slice"],
                also_replaces=["pacednegatives_tpu/ops/flash.py:498",

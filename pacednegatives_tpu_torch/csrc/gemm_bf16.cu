@@ -9,185 +9,213 @@
 // GEMM -> attention core -> GEMM with the intermediates in device memory.
 //
 // What bounds it: at the serving shapes (M = 256 * 188 rows, K = 768,
-// N = 2304 or 768) the product does ~100-300 flops per byte moved, so it is
-// bound by tensor-core issue, not by memory. Design: 128 x 128 output tiles
-// per block of 8 warps (each warp a 64 x 32 sub-tile of 4 x 2 WMMA 16x16x16
-// bf16 fragments with fp32 accumulators), K stepped by 32 through a
-// two-stage cp.async ring in shared memory so the next tile's loads overlap
-// the current tile's products. Ragged M and K are zero-filled by cp.async's
-// source-size operand; N and K must be multiples of 8 (one 16-byte chunk).
-// The epilogue stages each fragment through shared memory to round to bf16
-// and store 16 bytes a thread with the ragged edge masked.
-// Not yet done (later work): wgmma/TMA, a persistent schedule, deeper rings.
+// N = 2304 or 768) the product does ~300-500 operations per byte moved, so
+// it is bound by the tensor cores (989 TFLOP/s bf16), which only wgmma
+// drives at full rate, fed without stalls; a 128 x 256 x 64 step also pulls
+// 48 KB from L2 into each SM, so the L2 feed and the epilogue are the next
+// limits.
+//
+// Design (hopper_pipeline.cuh): one persistent CTA per SM walks the
+// 128 x 256 output tiles (N fastest, so neighbouring CTAs share A's rows in
+// L2; the weights fit L2 whole). Warpgroup 0 is the producer: its first
+// thread issues TMA loads of A's 128 x 64 box (K-major) and B's four
+// 64 x 64 boxes (row-major B is N-major for wgmma, which bf16 allows as
+// the transposed B operand, so the weights are read as they lie) into a
+// three-stage ring of 48 KB stages, 128-byte swizzle. Warpgroups 1 and 2
+// each own 64 rows of the tile and issue four m64n256k16 wgmmas per stage
+// into 128 fp32 registers a thread (setmaxnreg gives them 232 registers,
+// the producer 40), keeping one stage's products in flight while the next
+// is issued. The producer runs ahead across tiles, so one tile's epilogue
+// overlaps the next tile's loads. The epilogue rounds to bf16 into a 32 KB
+// staging buffer per warpgroup (stmatrix into the 128-byte swizzle, so the
+// writes are conflict-free and few) and leaves the tile to TMA stores,
+// which drain while the next tile's products run (stored straight from
+// registers, as 4-byte scattered stores with the tensor cores idle, the
+// epilogue cost about a third of the kernel's time at the serving shape).
+// TMA zero-fills the ragged M, N and K edges on load and clips them on
+// store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_pipeline.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int WM = BM / WARPS_M;  // 64 rows per warp
-constexpr int WN = BN / WARPS_N;  // 32 columns per warp
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;  // 256
-// Padded leading dimensions: rows stay 16-byte aligned for cp.async and
-// 32-byte aligned at every 16-row fragment, and shift banks row to row.
-constexpr int LDA = BK + 8;  // 40
-constexpr int LDB = BN + 8;  // 136
-constexpr int A_STAGE = BM * LDA;  // elements
-constexpr int B_STAGE = BK * LDB;
-constexpr int SMEM_BYTES = 2 * (A_STAGE + B_STAGE) * 2;  // 37,888
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 3;
+constexpr int A_BYTES = BM * BK * 2;                // 16 KB
+constexpr int B_BOX_BYTES = 64 * BK * 2;            // 8 KB: 64 columns
+constexpr int B_BYTES = BN * BK * 2;                // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;      // 48 KB
+constexpr int C_BYTES = 64 * BN * 2;                // a consumer's 64 rows
+constexpr int THREADS = 384;                        // producer + 2 consumers
+constexpr int SMEM_BYTES =
+    STAGES * STAGE_BYTES + 2 * C_BYTES + 2 * STAGES * 8 + 1024;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_c, int M, int N,
+                     int K) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: stages start aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* cbuf = smem + STAGES * STAGE_BYTES;  // 2 x C_BYTES
+  uint64_t* full = reinterpret_cast<uint64_t*>(cbuf + 2 * C_BYTES);
+  uint64_t* empty = full + STAGES;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * tiles_n;
+  const int nk = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two blocks per SM (at most 128 registers a thread; ptxas spills 24 bytes)
-// and one barrier per k-step: 0.94-0.99 ms at 48128 x 768 x 2304 against
-// 1.17-1.20 ms for one 140-register block with two barriers per step
-// (H100 80GB HBM3, 700 W); a third or fourth cp.async stage gained nothing.
-__global__ void __launch_bounds__(THREADS, 2)
-    gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
-                     const __nv_bfloat16* __restrict__ B,
-                     __nv_bfloat16* __restrict__ C, int M, int N, int K,
-                     long long lda, long long ldb, long long ldc) {
-  __shared__ __align__(128) unsigned char smem_raw[SMEM_BYTES];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sB = sA + 2 * A_STAGE;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* a_dst = sA + stage * A_STAGE;
-    __nv_bfloat16* b_dst = sB + stage * B_STAGE;
-    // A tile: BM x BK = 512 chunks of 8; B tile: BK x BN = 512 chunks.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int gr = m0 + r, gc = k0 + col;
-      const bool ok = gr < M && gc < K;
-      const __nv_bfloat16* src = ok ? A + (long long)gr * lda + gc : A;
-      cp_async16(a_dst + r * LDA + col, src, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's arrive + bytes
+      hopper::mbar_init(&empty[s], 2);  // one arrive per consumer
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const int gr = k0 + r, gc = n0 + col;
-      const bool ok = gr < K && gc < N;
-      const __nv_bfloat16* src = ok ? B + (long long)gr * ldb + gc : B;
-      cp_async16(b_dst + r * LDB + col, src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int ktiles = (K + BK - 1) / BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<0>();  // tile kt has landed
-    // one barrier per step: tile kt is visible to every warp, and every
-    // warp is done with tile kt - 1, whose stage the next load refills
-    __syncthreads();
-    if (kt + 1 < ktiles) load_tile(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    const __nv_bfloat16* a_s = sA + (kt & 1) * A_STAGE;
-    const __nv_bfloat16* b_s = sB + (kt & 1) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          bf[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(af[i], a_s + (warp_m * WM + i * 16) * LDA + kk,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bf[j], b_s + kk * LDB + warp_n * WN + j * 16,
-                               LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
+    hopper::fence_mbar_init();
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done reading the ring
+  __syncthreads();
 
-  // Epilogue: each warp owns a 16 x 16 fp32 staging square in the (now idle)
-  // pipeline buffer; lane -> (row lane / 2, 8 columns at (lane % 2) * 8).
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 256;
-  const int r = lane / 2, cg = (lane % 2) * 8;
+  if (wg == 0) {
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * STAGE_BYTES;
+          hopper::mbar_expect_tx(&full[stage], STAGE_BYTES);
+          hopper::tma_load_2d(st, &map_a, &full[stage], kb * BK, m0);
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + warp_m * WM + i * 16 + r;
-      const int gc = n0 + warp_n * WN + j * 16 + cg;
-      if (gr < M && gc < N) {
-        __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          packed[e] = __floats2bfloat162_rn(stage[r * 16 + cg + 2 * e],
-                                            stage[r * 16 + cg + 2 * e + 1]);
-        *reinterpret_cast<uint4*>(C + (long long)gr * ldc + gc) =
-            *reinterpret_cast<const uint4*>(packed);
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_2d(st + A_BYTES + c * B_BOX_BYTES, &map_b,
+                                &full[stage], n0 + 64 * c, kb * BK);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
       }
-      __syncwarp();
     }
+  } else {
+    hopper::reg_alloc<232>();
+    const int cw = wg - 1;  // rows 64 * cw .. of the tile
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      int prev = -1;
+      for (int kb = 0; kb < nk; ++kb) {
+        hopper::mbar_wait(&full[stage], phase);
+        const unsigned char* st = smem + stage * STAGE_BYTES;
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // A: K-major rows of 128 bytes, +32 bytes per k16 step. B: N-major,
+          // 64-column boxes 8 KB apart (lbo), 8 k-rows 1 KB apart (sbo),
+          // +16 rows (2 KB) per k16 step.
+          const uint64_t da =
+              hopper::make_desc(st + cw * 64 * 128 + kk * 32, 16, 1024);
+          const uint64_t db = hopper::make_desc(
+              st + A_BYTES + kk * 16 * 128, B_BOX_BYTES, 1024);
+          hopper::wgmma_m64n256k16_bf16_tb(acc, da, db);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous stage's products are done
+        hopper::fence_regs(acc);
+        if (prev >= 0 && leader) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (prev >= 0 && leader) hopper::mbar_arrive(&empty[prev]);
+
+      // epilogue: fp32 -> bf16 into this warpgroup's 64 x 256 staging
+      // buffer, as four 64 x 64 boxes in the 128-byte swizzle, four 8 x 8
+      // matrices per stmatrix (conflict-free: a matrix's 8 rows land on 8
+      // distinct 16-byte bank groups), then TMA stores, which clip the
+      // ragged M and N edges and drain while the next tile's products run
+      unsigned char* cb = cbuf + cw * C_BYTES;
+      if (leader) hopper::bulk_wait_read();  // the last tile's stores
+      hopper::named_sync(1 + cw, 128);
+#pragma unroll
+      for (int q = 0; q < BN / 16; ++q) {
+        // matrices (rows 8h.., columns 8j..) for h = 0, 1 and j = 2q, 2q + 1;
+        // this lane addresses row lane % 8 of matrix lane / 8
+        const int rr = lane % 8, hj = lane / 8;
+        const int r = warp * 16 + 8 * (hj & 1) + rr, j = 2 * q + (hj >> 1);
+        uint32_t v[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int jm = 2 * q + (m >> 1), hm = m & 1;
+          const __nv_bfloat162 p = __floats2bfloat162_rn(
+              acc[4 * jm + 2 * hm], acc[4 * jm + 2 * hm + 1]);
+          v[m] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        hopper::stmatrix_x4(
+            hopper::smem_u32(cb + (j / 8) * 8192 + r * 128 +
+                             (((j % 8) ^ rr) << 4)),
+            v);
+      }
+      hopper::fence_async_smem();
+      hopper::named_sync(1 + cw, 128);
+      if (leader) {
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          hopper::tma_store_2d(&map_c, cb + b * 8192, n0 + 64 * b,
+                               m0 + cw * 64);
+        hopper::bulk_commit();
+      }
+    }
+    if (leader) hopper::bulk_wait();
   }
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Returns cudaGetLastError() after the
-// launch (0 = success). Launches on `stream`; allocates nothing.
+// C entry point, bound with ctypes. Returns 0 or a cudaError_t (the tensor
+// maps' encoding, the launch's cudaGetLastError()). Launches on `stream`;
+// allocates nothing. A and B: row-major with row strides lda, ldb
+// (elements, multiples of 8), 16-byte-aligned bases; K and N multiples of 8.
 extern "C" int pnt_gemm_bf16(const void* A, const void* B, void* C, int M,
                              int N, int K, long long lda, long long ldb,
                              long long ldc, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (M <= 0 || N <= 0 || K <= 0 || (N % 8) || (K % 8))
+  if (M <= 0 || N <= 0 || K <= 0 || (N % 8) || (K % 8) || (lda % 8) ||
+      (ldb % 8) || (ldc % 8))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(A),
-      static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(C), M,
-      N, K, lda, ldb, ldc);
+  CUtensorMap map_a, map_b, map_c;
+  int rc = hopper::make_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A,
+                               K, M, lda * 2, BK, BM);
+  if (rc) return rc;
+  rc = hopper::make_map_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, B, N, K,
+                           ldb * 2, 64, BK);
+  if (!rc)
+    rc = hopper::make_map_2d(&map_c, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, C, N,
+                             M, ldc * 2, 64, 64);
+  if (rc) return rc;
+  err = cudaFuncSetAttribute(gemm_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles =
+      static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(
+      tiles < hopper::sm_count(device) ? tiles : hopper::sm_count(device));
+  gemm_bf16_kernel<<<grid, THREADS, SMEM_BYTES,
+                     static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, map_c, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

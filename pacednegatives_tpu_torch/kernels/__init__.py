@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``pacednegatives_tpu_torch/csrc/*.cu``. On first use each is
-compiled by its own ``nvcc`` for Hopper (``sm_90a``), all at once, and the
-objects are linked into one shared library with a plain C interface, which
-is loaded with ``ctypes``. The library goes into
-``pacednegatives_tpu_torch/_build/`` (git-ignored), named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-not. Nothing here runs at import time: the CPU tests import every module, and
+The sources are ``pacednegatives_tpu_torch/csrc/*.cu`` and the headers they
+share (``csrc/*.cuh``). On first use each source is compiled by its own
+``nvcc`` for Hopper (``sm_90a``), all at once, and the objects are linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``. The library goes into ``pacednegatives_tpu_torch/_build/``
+(git-ignored), named by a hash of the sources, headers and flags, so an
+edited source or header rebuilds it and an unchanged tree does not.
+Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
 """
 
@@ -26,6 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu",
            "mips_topk.cu")
+HEADERS = ("hopper_pipeline.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -62,9 +64,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # q, docs, scales, cand_v, cand_i, B, N, D, block_n, k_per_block,
-    # doc_type (0 fp32, 1 bf16, 2 int8), device, stream
-    "pnt_mips_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, docs, scales, cand, B, N, D, block_n, k_per_block, doc_type
+    # (2 int8), device, stream
+    "pnt_mips_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q_hi, q_lo, docs, scores, cand, B, N, D, seg_len, nseg, kk,
+    # doc_type (0 fp32, 1 bf16), device, stream
+    "pnt_mips_topk_sets": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
 }
 
 
@@ -88,7 +94,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libpnt_kernels_{h.hexdigest()[:16]}.so"

@@ -2,8 +2,9 @@
 
 ``gemm(a, b)`` is C = A . B for row-major (M, K) and (K, N) operands. On a
 CUDA tensor it launches the hand-written kernel in ``csrc/gemm_bf16.cu``
-(bf16 in, fp32 accumulation, bf16 out) or raises; on a CPU tensor it runs
-``gemm_plain``, the plain PyTorch version with the same signature.
+(a persistent TMA + wgmma pipeline; bf16 in, fp32 accumulation, bf16 out)
+or raises; on a CPU tensor it runs ``gemm_plain``, the plain PyTorch
+version with the same signature.
 
 The TPU kernel it stands in for computes both projections inside
 ``_v3_fwd_kernel`` (pacednegatives_tpu/ops/flash_v3.py:105-108 and
@@ -40,8 +41,9 @@ def _check_operand(t: torch.Tensor, name: str) -> None:
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) . (K, N) -> (M, N). CPU: ``gemm_plain``. CUDA: the kernel.
 
-    The kernel takes bf16, a contiguous last dimension, and K and N that are
-    multiples of 8 (16-byte loads); anything else raises."""
+    The kernel takes bf16, a contiguous last dimension, row strides and K
+    and N that are multiples of 8 (TMA's 16-byte strides); anything else
+    raises."""
     if a.device.type == "cpu":
         return gemm_plain(a, b)
     if a.device.type != "cuda" or b.device != a.device:

@@ -10,17 +10,29 @@ k' = k that is the exact top-k; with k' < k it is near-exact (it differs
 only where more than k' of the true top-k fall in one block), and it
 depends on ``block_n`` and k', as the JAX function does.
 
-On a CUDA tensor each wrapper launches the hand-written kernel in
-``csrc/mips_topk.cu`` (one launch: the per-block top-k' of every block and
-query tile) or raises, and merges the candidates with a stable sort; on a
-CPU tensor it runs the plain PyTorch version, which computes the same
-per-block top-k' with a stable sort. ``torch.topk`` does not promise the
-tie order on CUDA, so neither path uses it.
+On a CUDA tensor each wrapper launches the hand-written kernels in
+``csrc/mips_topk.cu`` or raises: fp32 docs (K5's ``build_pools`` use) and
+bf16 docs go through tensor-core scores (3xTF32 for fp32) and a radix
+select of each (query, segment)'s top keys as a set (segments = the blocks
+when k' < k; when k' >= k the function is the exact top-k and the segments
+are a few long runs of rows); int8 docs (K6) through one launch that keeps
+each query tile's running top-k' per block. On a CPU tensor it runs the
+plain PyTorch version, which computes the per-block top-k' with a stable
+sort.
+
+The merge of the candidates packs each (value, doc index) into one int64
+key whose signed order is (value descending, lower index first): the
+value's bits with the magnitude flipped for negatives in the high word (so
+-0 sorts below +0, as ``lax.top_k`` orders them), the complemented index in
+the low word. The keys are unique, so ``torch.topk`` on them is exact and
+needs no tie rule: it returns what a stable sort of the candidates by value
+in (block, rank) order returns, without sorting them, on both devices.
 
 Indices are returned as int64 (the JAX functions return int32).
 
 Score arithmetic, as in the TPU kernels (mips.py:76-81, 154-159): fp32 docs
-multiply fp32 queries in full fp32 (TF32 would change which docs win);
+multiply fp32 queries in fp32 (the kernel: 3xTF32, ~2^-21 relative a
+product; single-pass TF32 would change which docs win);
 bf16 docs multiply the queries rounded to bf16, with fp32 sums; int8 docs
 (``quantize_embeddings``) multiply the queries rounded fp32 -> bf16 as bf16
 values, with fp32 sums times the row's fp32 scale.
@@ -35,8 +47,11 @@ from pacednegatives_tpu_torch import kernels
 # Docs dequantised or scored per plain-version slab: the fp32 transient is
 # O(slab) (~200 MB at D 768), never the full index (27 GB at 8.8M x 768).
 _PLAIN_SLAB_ROWS = 65536
-# The kernel keeps each query row's running top-k' in shared memory.
+# The int8 kernel keeps each query row's running top-k' in shared memory;
+# the fp32 / bf16 one takes the same bound.
 KERNEL_MAX_K_PER_BLOCK = 1024
+# An H100's SMs: the selection's long segments aim at two CTAs each.
+SM_COUNT = 132
 _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -60,14 +75,33 @@ def _k_per_block(k: int, num_docs: int, block_n: int,
     return num_blocks, min(k_per_block, block_n)
 
 
+def pack_keys(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """int64 merge keys of (fp32 value, index < 2^31) pairs: signed order is
+    value descending (-0 below +0), then the lower index."""
+    bits = values.float().contiguous().view(torch.int32).long()
+    high = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (high << 32) | (0xFFFFFFFF - indices.long())
+
+
+def unpack_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(fp32 values, int64 indices) of ``pack_keys``' keys."""
+    high = keys >> 32
+    bits = torch.where(high < 0, high ^ 0x7FFFFFFF, high).to(torch.int32)
+    return bits.view(torch.float32), 0xFFFFFFFF - (keys & 0xFFFFFFFF)
+
+
+def _merge_keys(keys: torch.Tensor, k: int):
+    """(B, C) candidate keys -> the (B, k) top-k (values, indices),
+    descending."""
+    return unpack_keys(torch.topk(keys, k, dim=1, sorted=True).values)
+
+
 def _merge_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
     """(num_blocks, B, k') per-block candidates -> global (B, k) top-k
     (mips.py:64-70), with the int64 doc indices."""
     num_blocks, B, kpb = cand_v.shape
-    cv = cand_v.transpose(0, 1).reshape(B, num_blocks * kpb)
-    ci = cand_i.transpose(0, 1).reshape(B, num_blocks * kpb)
-    v, pos = topk_stable(cv, k)
-    return v, torch.gather(ci, 1, pos).long()
+    keys = pack_keys(cand_v, cand_i).transpose(0, 1)
+    return _merge_keys(keys.reshape(B, num_blocks * kpb), k)
 
 
 def _query_operand(queries: torch.Tensor, doc_dtype: torch.dtype):
@@ -126,7 +160,34 @@ def mips_topk_pallas_quantized_plain(queries: torch.Tensor,
 
 
 def _launch(queries, docs, scales, k, block_n, k_per_block, name):
-    """Check the operands, launch ``pnt_mips_topk`` once and merge."""
+    """Check the operands, launch the kernels and merge their candidates."""
+    return _merge_keys(
+        _kernel_candidates(queries, docs, scales, k, block_n, k_per_block,
+                           name), k)
+
+
+def set_segments(B: int, N: int, block_n: int, k: int, kpb: int,
+                 fold: bool | None = None) -> tuple[int, int, int]:
+    """(rows a segment, segments, keys kept a segment) of the fp32 / bf16
+    kernels' selection. k' < k: the blocks, k' each. k' >= k (or ``fold``):
+    the blockwise function is the exact top-k, so the rows are cut into a
+    few long runs, about two CTAs an SM over the B queries, each at least k
+    rows (a multiple of 4, for 16-byte loads), and each keeps k."""
+    if fold is None:
+        fold = kpb >= k
+    if not fold:
+        return block_n, N // block_n, kpb
+    parts = max(1, min(-(-2 * SM_COUNT // B), N // k))
+    seg = -(-N // parts)
+    seg = min(N, -(-seg // 4) * 4)
+    return seg, -(-N // seg), k
+
+
+def _kernel_candidates(queries, docs, scales, k, block_n, k_per_block, name,
+                       fold: bool | None = None):
+    """Check the operands and launch the kernels once: the (B, C) candidate
+    keys before the merge. ``fold`` (fp32 / bf16 docs) forces the segments:
+    the blocks (False) or long runs of rows (True); None picks by k' >= k."""
     dev = queries.device
     if dev.type != "cuda" or docs.device != dev or (
             scales is not None and scales.device != dev):
@@ -149,22 +210,38 @@ def _launch(queries, docs, scales, k, block_n, k_per_block, name):
     if k > N:
         raise ValueError(f"{name}: k={k} > N={N}")
     docs = docs.contiguous()
+    device = (dev.index if dev.index is not None
+              else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if docs.dtype != torch.int8:
+        if B > 65535:
+            raise ValueError(f"{name}: the kernel takes B <= 65535")
+        q_hi = _query_operand(queries, docs.dtype).contiguous()
+        q_lo = None
+        if docs.dtype == torch.float32:
+            # the queries' tf32 high parts (rounded to the nearest: the low
+            # 13 bits cleared) and their residuals
+            q = q_hi
+            q_hi = ((q.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+            q_lo = q - q_hi
+        seg, nseg, kk = set_segments(B, N, block_n, k, kpb, fold)
+        scores = torch.empty((B, N), dtype=torch.float32, device=dev)
+        cand = torch.empty((B, nseg, kk), dtype=torch.int64, device=dev)
+        rc = kernels.library().pnt_mips_topk_sets(
+            q_hi.data_ptr(), q_lo.data_ptr() if q_lo is not None else None,
+            docs.data_ptr(), scores.data_ptr(), cand.data_ptr(), B, N, D,
+            seg, nseg, kk, _DOC_TYPES[docs.dtype], device, stream)
+        kernels.check(rc, name)
+        return cand.view(B, nseg * kk)
     q_op = _query_operand(queries, docs.dtype).contiguous()
-    if scales is not None:
-        scales = scales.float().contiguous()
-    cand_v = torch.empty((num_blocks, B, kpb), dtype=torch.float32,
-                         device=dev)
-    cand_i = torch.empty((num_blocks, B, kpb), dtype=torch.int32, device=dev)
+    scales = scales.float().contiguous()
+    cand = torch.empty((B, num_blocks, kpb), dtype=torch.int64, device=dev)
     rc = kernels.library().pnt_mips_topk(
-        q_op.data_ptr(), docs.data_ptr(),
-        scales.data_ptr() if scales is not None else None,
-        cand_v.data_ptr(), cand_i.data_ptr(), B, N, D, block_n, kpb,
-        _DOC_TYPES[docs.dtype],
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        q_op.data_ptr(), docs.data_ptr(), scales.data_ptr(), cand.data_ptr(),
+        B, N, D, block_n, kpb, _DOC_TYPES[docs.dtype], device, stream,
     )
     kernels.check(rc, name)
-    return _merge_candidates(cand_v, cand_i, k)
+    return cand.view(B, num_blocks * kpb)
 
 
 def mips_topk_pallas(queries: torch.Tensor, docs: torch.Tensor, k: int,

@@ -505,3 +505,69 @@ def test_online_mining_dispatch(cuda, rows, k6):
     else:
         _, ref = mips.mips_topk_quantized_streaming(q, *index, 65)
     assert idx.shape == (16, 65) and torch.equal(idx, ref)
+
+
+@pytest.mark.parametrize("B", [64, 100])
+def test_mips_topk_fp32_exact_keep(cuda, B):
+    """K5 fp32 at the build_pools setting (k' = k = 1000, block 1024): one
+    m64 query tile (B 64) and two (B 100). The segments are long runs of
+    rows; forcing them to the blocks gives the same result bitwise."""
+    N, D, k = 8 * 1024, 768, 1000
+    q = torch.nn.functional.normalize(
+        torch.randn((B, D), generator=cuda, device="cuda"), dim=1)
+    docs = torch.nn.functional.normalize(
+        torch.randn((N, D), generator=cuda, device="cuda"), dim=1)
+    v, i = mips.mips_topk_pallas(q, docs, k, block_n=1024)
+    rv, ri = mips.mips_topk_pallas_plain(q, docs, k, block_n=1024)
+    per_block = mips._merge_keys(mips._kernel_candidates(
+        q, docs, None, k, 1024, None, "k5", fold=False), k)
+    torch.cuda.synchronize()
+    assert torch.equal(v, per_block[0]) and torch.equal(i, per_block[1])
+    tol = D * 2.0**-23 * 1.01  # unit rows: chip_smoke.py's mips_tol
+    assert (v - rv).abs().max().item() <= tol
+    rows, cols = (i != ri).nonzero(as_tuple=True)
+    if len(rows):
+        s = mips.block_scores(q, docs[i[rows, cols]])
+        s = s[rows, torch.arange(len(rows), device=s.device)]
+        assert (s - rv[rows, cols]).abs().max().item() <= tol
+    assert len(rows) <= 0.01 * i.numel()
+
+
+def test_mips_topk_fp32_zero_rows_tie(cuda):
+    """15,000 zero rows (the padding build_pools adds) all score exactly 0
+    and straddle the k-th place, in one segment (B 264 keeps the k' = k
+    route to a single run of rows) and in each 4096-row block (k' < k):
+    more tied keys than the selection sorts in shared memory, so it takes
+    the lowest indices by an ordered count. The indices equal the plain
+    version's (ties to the lower index)."""
+    B, N, D, k = 264, 16384, 64, 1000
+    docs = torch.randn((N, D), generator=cuda, device="cuda")
+    docs[500:15500] = 0.0
+    q = torch.randn((B, D), generator=cuda, device="cuda")
+    for kpb in (None, 100):
+        v, i = mips.mips_topk_pallas(q, docs, k, block_n=4096,
+                                     k_per_block=kpb)
+        rv, ri = mips.mips_topk_pallas_plain(q, docs, k, block_n=4096,
+                                             k_per_block=kpb)
+        torch.cuda.synchronize()
+        zero = rv == 0
+        assert zero.any() and torch.equal(i[zero], ri[zero])
+        assert (v - rv).abs().max().item() <= D * 2.0**-23 * D
+
+
+# many persistent 128 x 256 tiles with ragged M (48128 + 37), N 8 (one
+# column box, the rest of the tile zero-filled), K 8 (one k-box, mostly
+# out of bounds), and A as a view whose row stride exceeds K
+@pytest.mark.parametrize("M,K,N,pad", [(48165, 136, 2304, 0),
+                                       (48165, 768, 8, 0), (1000, 8, 2304, 0),
+                                       (2000, 136, 264, 24)])
+def test_gemm_tiles_edges_strides_and_repeats(cuda, M, K, N, pad):
+    a = _randn(cuda, M, K + pad)[:, :K]
+    b = _randn(cuda, K, N, scale=K**-0.5)
+    c = gemm.gemm(a, b)
+    again = gemm.gemm(a, b)
+    ref = gemm.gemm_plain(a, b)
+    torch.cuda.synchronize()
+    assert a.stride(0) == K + pad and torch.equal(c, again)
+    tol = 2.0**-7 * ref.float().abs().max().item()
+    assert (c.float() - ref.float()).abs().max().item() <= tol

@@ -192,3 +192,100 @@ def test_k_per_block_raised_for_the_merge():
 def test_approx_is_not_carried_over():
     with pytest.raises(NotImplementedError, match="approx_max_k"):
         mips.mips_topk_approx(torch.zeros((1, 4)), torch.zeros((8, 4)), 2)
+
+
+# ---------------------------------------------------------------------------
+# The merge on packed int64 keys
+# ---------------------------------------------------------------------------
+
+MERGE_NB, MERGE_BN, MERGE_B = 4, 64, 3
+
+
+def _candidates(feature: str, kpb: int, seed: int = 0):
+    """(num_blocks, B, k') candidates as the per-block stage emits them:
+    distinct doc indices of each block, ordered by value (descending, -0
+    and +0 equal, as the TPU kernel's == compares them) and then by the
+    lower index. Values on a coarse grid, so exact ties fall inside and
+    across blocks; ``feature`` adds signed zeros or -inf."""
+    rng = np.random.default_rng(seed)
+    cv = np.empty((MERGE_NB, MERGE_B, kpb), np.float32)
+    ci = np.empty((MERGE_NB, MERGE_B, kpb), np.int32)
+    for b in range(MERGE_NB):
+        for r in range(MERGE_B):
+            idx = rng.choice(MERGE_BN, kpb, replace=False) + b * MERGE_BN
+            val = (rng.integers(-3, 4, kpb) / 4).astype(np.float32)
+            if feature == "signed_zero":
+                val[rng.random(kpb) < 0.5] = 0.0
+                val[rng.random(kpb) < 0.5] *= -1  # -0 beside +0
+            elif feature == "neg_inf":
+                val[rng.random(kpb) < 0.3] = -np.inf
+            order = np.lexsort((idx, -val))
+            cv[b, r], ci[b, r] = val[order], idx[order]
+    return cv, ci
+
+
+def _stable_sort_merge(cv, ci, k):
+    """The merge before packed keys: a stable sort of the candidates in
+    (block, rank) order."""
+    nb, B, kpb = cv.shape
+    v, pos = mips.topk_stable(
+        torch.from_numpy(cv).transpose(0, 1).reshape(B, nb * kpb), k)
+    i = torch.gather(torch.from_numpy(ci).transpose(0, 1).reshape(
+        B, nb * kpb), 1, pos)
+    return v.numpy(), i.long().numpy()
+
+
+@pytest.mark.parametrize("feature", ["ties", "signed_zero", "neg_inf"])
+@pytest.mark.parametrize("kpb,k", [(12, 12), (5, 12)])
+def test_packed_key_merge_matches_jax_and_stable_sort(feature, kpb, k):
+    """The packed-key merge, fed each block's candidates in a shuffled
+    order (the fp32 kernel emits sets), equals JAX's ``_merge_candidates``
+    on the ordered candidates, bit for bit (the sign of zero included), and
+    equals the stable-sort merge except where -0 and +0 meet: torch.sort
+    holds them equal, lax.top_k (the reference) puts -0 below +0."""
+    cv, ci = _candidates(feature, kpb)
+    jv, ji = jmips._merge_candidates(jnp.asarray(cv), jnp.asarray(ci), k)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    perm = np.random.default_rng(1).permuted(
+        np.broadcast_to(np.arange(kpb), cv.shape), axis=2)
+    sv = np.take_along_axis(cv, perm, axis=2)
+    si = np.take_along_axis(ci, perm, axis=2)
+    v, i = mips._merge_candidates(torch.from_numpy(sv), torch.from_numpy(si),
+                                  k)
+    assert v.dtype == torch.float32 and i.dtype == torch.int64
+    np.testing.assert_array_equal(v.numpy().view(np.int32), jv.view(np.int32))
+    np.testing.assert_array_equal(i.numpy(), ji)
+    ov, oi = _stable_sort_merge(cv, ci, k)
+    np.testing.assert_array_equal(ov, jv)  # -0 == +0 here
+    if feature != "signed_zero":
+        np.testing.assert_array_equal(oi, ji)
+
+
+def test_pack_keys_round_trip_and_order():
+    v = torch.tensor([1.5, -0.0, 0.0, -np.inf, np.inf, -2.0, 1.5, 3e-38])
+    i = torch.tensor([7, 3, 9, 0, 2**31 - 1, 5, 2, 11])
+    keys = mips.pack_keys(v, i)
+    rv, ri = mips.unpack_keys(keys)
+    assert torch.equal(rv.view(torch.int32), v.view(torch.int32))
+    assert torch.equal(ri, i)
+    # signed order: value descending (-0 below +0), then the lower index
+    order = torch.argsort(keys, descending=True).tolist()
+    assert order == [4, 6, 0, 7, 2, 1, 5, 3]
+
+
+@pytest.mark.parametrize("B,N,block_n,k,kpb", [
+    (64, 1_003_520, 1024, 1000, 1000), (64, 2048, 1024, 1000, 1000),
+    (3, 1024, 256, 40, 40), (5, 2048, 1024, 1000, 1000),
+    (16, 4096, 256, 129, 32),
+])
+def test_set_segments_cover_the_rows(B, N, block_n, k, kpb):
+    """The fp32 / bf16 selection's segments: the blocks at k' < k; at
+    k' >= k a few runs of at least k rows (a multiple of 4) that cover
+    [0, N)."""
+    seg, nseg, kk = mips.set_segments(B, N, block_n, k, kpb)
+    assert seg * (nseg - 1) < N <= seg * nseg
+    if kpb < k:
+        assert (seg, nseg, kk) == (block_n, N // block_n, kpb)
+    else:
+        assert kk == k and seg >= k and (seg % 4 == 0 or seg == N)
+        assert B * nseg <= 2 * mips.SM_COUNT + B

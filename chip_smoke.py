@@ -17,8 +17,11 @@ Phases, one JSON line each (any failure exits non-zero):
              backward (K4) also at L 512 / dk 128; the chunked path's
              backward kernels K2b (at its L 512 training shape and at
              dk 128) and K2a (at its L 768 training shape, and at
-             Lq 256 / Lk 128), and K1 with fp32 output at both training
-             shapes; every dpos must be bitwise equal across two runs;
+             Lq 256 / Lk 128), and K1 at the serving, refresh and L 512 /
+             dk 128 shapes and with fp32 output at both training shapes
+             (SDPA beside it, and its host cost per call); every dpos and
+             every K1 output must be bitwise equal across two runs; K2b
+             and K4's core beside the memory-efficient SDPA backward;
 4. slice   - monoT5 rerank at t5-base width (random weights from a seed,
              flash_v3 on, bf16) through ``Reranker.rerank``: unpacked, then
              packed with length buckets. Launch counts must equal the
@@ -237,6 +240,30 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def time_ms_back_to_back(fn, calls: int = 20, warmup: int = 3,
+                         reps: int = 5) -> float:
+    """Median device time per call of ``calls`` calls of ``fn`` issued back
+    to back between one pair of CUDA events, as a loop of calls runs (a
+    refresh's 1,536 forwards): the wrapper's host time hides under the
+    card's work unless it exceeds it. ``time_ms`` synchronises after every
+    call, so for a call of ~0.1 ms it also counts the host's time to
+    enqueue it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -357,6 +384,8 @@ def phase_kernels() -> dict:
         # the slice: q/k/v strided views into the fused (B, L, 3*H*dk) qkv
         # buffer, heads written into a (B, L, H, dk) buffer, as K3 calls it
         ("slice", B_SERVE, 12, L_SERVE, 64, True),
+        # a refresh batch of the online encoder (128 docs of 160 tokens)
+        ("refresh", 128, 12, 160, 64, True),
         ("L512_dk128", 32, 12, 512, 128, False),
     )
     for label, B, Hc, L, d, fused_layout in cases:
@@ -373,26 +402,31 @@ def phase_kernels() -> dict:
         out32 = torch.empty((B, L, Hc, d), dtype=torch.float32, device="cuda")
         o, m, l = flash_attention_forward(q, k, v, pos, km,
                                           out=out32.transpose(1, 2))
+        _attention_repeats(label, (o, m, l), lambda: flash_attention_forward(
+            q, k, v, pos, km, out=torch.empty_like(out32).transpose(1, 2)))
         check(f"attention_{label}_m", max_abs(m, rm), 1e-3)
         check(f"attention_{label}_l_rel",
               ((l - rl).abs() / rl).max().item(), 1e-3)
         # timed as the slice runs it: bf16 out, K3's layout
         out16 = torch.empty((B, L, Hc, d), dtype=torch.bfloat16, device="cuda")
+        launch16 = lambda: flash_attention_forward(
+            q, k, v, pos, km, out=out16.transpose(1, 2))
         # the yardstick: one scaled_dot_product_attention call, T5's unit
         # scale, the position bias and key mask summed into one (B, H, L,
         # L) bf16 attn_mask (built outside the timing)
         mask = (pos[None] + km[:, None, None, :]).to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = lambda: sdpa(q, k, v, attn_mask=mask, scale=1.0)
         qkv_bytes = 4 * B * Hc * L * d * 2  # q, k, v in, out out (bf16)
         att[label] = check(
             f"attention_{label}_out", max_abs(o, ref), 2e-2,
-            shape=[B, Hc, L, d],
-            ms=time_ms(lambda: flash_attention_forward(
-                q, k, v, pos, km, out=out16.transpose(1, 2))),
+            shape=[B, Hc, L, d], fused_layout=fused_layout,
+            ms=time_ms(launch16), host_us=_host_us(launch16),
+            ms_back_to_back=time_ms_back_to_back(launch16),
             plain_ms=time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, pos, km, out=out16.transpose(1, 2))),
-            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
-                                            scale=1.0)),
+            library_ms=time_ms(library),
+            library_ms_back_to_back=time_ms_back_to_back(library),
             # q.k^T and p.v; pos and key mask in, (m, l) out (fp32)
             **bound(qkv_bytes + Hc * L * L * 4 + B * L * 4
                     + 2 * B * Hc * L * 4, 4 * B * Hc * L * L * d, "bf16"),
@@ -408,21 +442,26 @@ def phase_kernels() -> dict:
         ref, rm, rl = flash_attention_forward_plain(q, k, v, pos, km,
                                                     torch.float32)
         o, m, l = flash_attention_forward(q, k, v, pos, km, torch.float32)
+        _attention_repeats(label, (o, m, l), lambda: flash_attention_forward(
+            q, k, v, pos, km, torch.float32))
         check(f"attention_{label}_m", max_abs(m, rm), 1e-3)
         check(f"attention_{label}_l_rel", ((l - rl).abs() / rl).max().item(),
               1e-3)
         mask = (pos[None] + km[:, None, None, :]).to(torch.bfloat16)
+        launch32 = lambda: flash_attention_forward(q, k, v, pos, km,
+                                                   torch.float32)
+        # the yardstick as above (its output is bf16, not fp32)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0)
         att[f"{label}_fp32_out"] = check(
             f"attention_{label}_out", max_abs(o, ref), 2e-2,
             shape=[B, H, L, dk],
-            ms=time_ms(lambda: flash_attention_forward(q, k, v, pos, km,
-                                                       torch.float32)),
+            ms=time_ms(launch32), host_us=_host_us(launch32),
+            ms_back_to_back=time_ms_back_to_back(launch32),
             plain_ms=time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, pos, km, torch.float32)),
-            # the yardstick as above (its output is bf16, not fp32)
-            library_ms=time_ms(lambda: torch.nn.functional
-                               .scaled_dot_product_attention(
-                                   q, k, v, attn_mask=mask, scale=1.0)),
+            library_ms=time_ms(library),
+            library_ms_back_to_back=time_ms_back_to_back(library),
             # q, k, v in (bf16), out (fp32); pos, key mask in, (m, l) out
             **bound(3 * B * H * L * dk * 2 + B * H * L * dk * 4
                     + H * L * L * 4 + B * L * 4 + 2 * B * H * L * 4,
@@ -475,6 +514,65 @@ def phase_kernels() -> dict:
                              ("L512_dk128", (32, 512, 12, 128)))
     }
     return results
+
+
+def _attention_repeats(label: str, first, again_fn) -> None:
+    """K1's (out, m, l) must be bitwise equal across two runs."""
+    again = again_fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    emit("kernels", check=f"attention_{label}_bitwise_repeat", ok=same)
+    if not same:
+        raise AssertionError(f"attention {label}: two runs differ")
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue (the wrapper's
+    checks, allocations and tensor-map encoding, the launch), with the card
+    kept busy so that the queue never drains: one warm-up call, then
+    ``calls`` calls timed by the host clock without a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def _sdpa_bwd_library(q, k, v, g, pos, km) -> dict:
+    """The yardstick of the attention backward kernels (K2b, K4's core):
+    one ``aten._scaled_dot_product_efficient_attention_backward`` call (dq,
+    dk, dv and the (B, H, Lq, Lk) gradient of the bias) plus the batch sum
+    of that gradient (dpos), on bf16 q/k/v/g and pos + key mask as one bf16
+    attn_bias (the op takes one dtype, so K2b's fp32 g is rounded); its
+    forward, for out and the logsumexp, runs outside the timing, and the
+    bias's rows are padded to 16 bytes, as SDPA pads them. Never called by
+    the port. {"library_ms": ms or None, "library_note": why None}."""
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    qc, kc, vc = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+    gc = g.to(torch.bfloat16).contiguous()
+    bias = torch.empty((B, H, Lq, -(-Lk // 8) * 8), dtype=torch.bfloat16,
+                       device="cuda")[..., :Lk]
+    bias.copy_(pos[None] + km[:, None, None, :])
+    ops = torch.ops.aten
+    try:
+        out, lse, seed, offset = ops._scaled_dot_product_efficient_attention(
+            qc, kc, vc, bias, True, 0.0, False, scale=1.0)
+
+        def run():
+            grads = ops._scaled_dot_product_efficient_attention_backward(
+                gc, qc, kc, vc, bias, out, lse, seed, offset, 0.0,
+                [True, True, True, True], False, scale=1.0)
+            return grads[3].sum(dim=0)
+
+        run()
+        return {"library_ms": time_ms(run), "library_note": None}
+    except RuntimeError as e:
+        return {"library_ms": None,
+                "library_note": str(e).strip().splitlines()[0][:200]}
 
 
 def _check_k4(g, label, B, L, H, dk) -> dict:
@@ -541,8 +639,8 @@ def _check_k4(g, label, B, L, H, dk) -> dict:
         "errors": errs, "dpos_bitwise_repeat": deterministic,
         "ms": time_ms(lambda: attention_backward(*core)),
         "plain_ms": time_ms(lambda: attention_backward_plain(*core)),
-        # no single PyTorch call computes this backward
-        "library_ms": None,
+        # it also recomputes out; the yardstick does not
+        **_sdpa_bwd_library(q, k, v, gv, pos3, km),
         # q, k, v, g in and dq, dk, dv, attn out (bf16); pos and dpos (H,
         # L, L), key mask, m, l (fp32); six products: s, o, dv, dp, dq, dk
         **bound(8 * B * H * L * dk * 2 + 2 * H * L * L * 4 + B * L * 4
@@ -603,7 +701,9 @@ def _check_core_bwd(g, kernel, B, H, Lq, Lk, dk) -> dict:
         "errors": errs, "dpos_bitwise_repeat": bitwise,
         "ms": time_ms(lambda: fn(*args)),
         "plain_ms": time_ms(lambda: plain(*args)),
-        "library_ms": None,  # no single PyTorch call computes it
+        # K2a multiplies fp32 operands: no library call computes it
+        **(_sdpa_bwd_library(q, k, v, gout, pos, km) if kernel == "k2b"
+           else {"library_ms": None}),
         # q, k, v (bf16), g, dcap, m, l, pos, key mask in; dq, dk, dv, dpos
         # out (fp32); five products (s, dp, dv, dq, dk), bf16 operands for
         # K2b and fp32 for K2a
@@ -1025,21 +1125,24 @@ def _topk_agreement(q, index, got, ref, tol) -> dict:
             "swap_err": swap_err}
 
 
-def _mips_library_ms(q, index, k: int) -> float:
+def _mips_library_ms(q, index, k: int) -> dict:
     """The yardstick, never called by the port: one torch.mm, then
     torch.topk (int8: on a bf16 copy of the values, exact, built outside
-    the timing, and scaled after the product)."""
+    the timing, and scaled after the product); timed per call and back to
+    back."""
     if len(index) == 2:
         vals, scales = index
         docs = torch.empty(vals.shape, dtype=torch.bfloat16, device="cuda")
         for s0 in range(0, vals.shape[0], 1 << 20):
             docs[s0:s0 + (1 << 20)] = vals[s0:s0 + (1 << 20)]
         q_b = q.to(torch.bfloat16)
-        return time_ms(lambda: torch.topk(
-            torch.mm(q_b, docs.t()).float() * scales, k), warmup=1, reps=5)
-    q_l = q.to(index[0].dtype)
-    return time_ms(lambda: torch.topk(torch.mm(q_l, index[0].t()), k),
-                   warmup=1, reps=5)
+        fn = lambda: torch.topk(torch.mm(q_b, docs.t()).float() * scales, k)
+    else:
+        q_l = q.to(index[0].dtype)
+        fn = lambda: torch.topk(torch.mm(q_l, index[0].t()), k)
+    return {"library_ms": time_ms(fn, warmup=1, reps=5),
+            "library_ms_back_to_back": time_ms_back_to_back(fn, calls=5,
+                                                            warmup=1)}
 
 
 def _check_mips(g, case: str, kind: str, shape: tuple, exact: bool = False,
@@ -1098,8 +1201,10 @@ def _check_mips(g, case: str, kind: str, shape: tuple, exact: bool = False,
         near_tie_swaps=agree["near_tie_swaps"], bitwise_repeat=bitwise,
         kernel_ms=kernel_ms, merge_ms=merge_ms, **split,
         ms=time_ms(run, warmup=2, reps=10),
+        ms_back_to_back=time_ms_back_to_back(run, calls=5, warmup=1),
         plain_ms=time_ms(ref_fn, warmup=1, reps=3),
-        library_ms=_mips_library_ms(q, index, k) if library else None,
+        **(_mips_library_ms(q, index, k) if library
+           else {"library_ms": None}),
         **bound(nbytes, 2 * B * N * D, "fp32" if kind == "fp32" else "bf16"),
     )
     out = check(case, agree["max_abs_err"], tol, **fields)
@@ -1241,6 +1346,9 @@ def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
             "launches": launches,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
+                                       "library_note", "host_us",
+                                       "ms_back_to_back",
+                                       "library_ms_back_to_back",
                                        "shape", "kernel_ms", "merge_ms",
                                        "per_block_kernel_ms",
                                        "per_block_merge_ms")
@@ -1276,6 +1384,8 @@ def main() -> int:
                total["attention"], k["attention"]["slice"],
                also_replaces=["pacednegatives_tpu/ops/flash.py:498",
                               "pacednegatives_tpu/ops/flash_v3.py:147"],
+               refresh=k["attention"]["refresh"],
+               L512_dk128=k["attention"]["L512_dk128"],
                train512_fp32_out=k["attention"]["train512_fp32_out"],
                train768_fp32_out=k["attention"]["train768_fp32_out"]),
         _entry("t5_attention_bwd", "t5_attention_bwd.cu",

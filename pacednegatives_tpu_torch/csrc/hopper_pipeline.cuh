@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (gemm_bf16.cu, mips_topk.cu): mbarriers, 2-D TMA loads, wgmma shared-
-// memory descriptors and instructions, register reallocation, and the
+// (gemm_bf16.cu, mips_topk.cu, t5_attention_fwd.cu): mbarriers, 2-D and 4-D
+// TMA loads, wgmma shared-memory descriptors and instructions (A from
+// shared memory or from registers), register reallocation, and the
 // host-side tensor maps.
 //
-// The pipeline these pieces make, in both kernels: one producer warpgroup
+// The pipeline these pieces make, in the GEMM and K5/K6: one producer warpgroup
 // whose first thread keeps TMA loads in flight into a ring of shared-memory
 // stages (each stage guarded by a "full" mbarrier, armed with the bytes it
 // expects, and an "empty" one that the consumers release), and consumer
@@ -90,6 +91,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// 4-D TMA load of one box at element coordinates (x innermost .. w).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y, int z,
+                                            int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y),
+      "r"(z), "r"(w)
       : "memory");
 }
 
@@ -300,6 +313,96 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// bf16 A operand from registers: each warp's 16 rows as the m16n8k16 A
+// fragment, a[0] = (row lane / 4, columns 2 * (lane % 4) + 0, 1), a[1] the
+// same columns 8 rows down, a[2] / a[3] those rows at columns + 8 (low half
+// = lower column). For a 16-column slice of an fp32 accumulator that is
+// a[0] = d[8i + 0, 1], a[1] = d[8i + 2, 3], a[2] = d[8i + 4, 5],
+// a[3] = d[8i + 6, 7], rounded to bf16 pairs. TRANS_B 0: B K-major from
+// shared memory; 1: B MN-major (N contiguous).
+//
+// C[64 x 64] += A[64 x 16] . B[16 x 64].
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ra(float (&d)[32],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// C[64 x 16] += A[64 x 16] . B[16 x 16], A from registers as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n16k16_bf16_ra(float (&d)[8],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// C[64 x 128] += A[64 x 16] . B[16 x 128], A from registers as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ra(float (&d)[64],
+                                                         const uint32_t (&a)[4],
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// Keeps the compiler from reusing registers that an asynchronous wgmma may
+// still be reading (A fragments) before its wait.
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -346,6 +449,28 @@ inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type,
                   elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4-D tensor at `base`: dims[0] contiguous, strides (bytes, multiples of
+// 16) of dims 1..3, boxes of box[0..3] elements (box[0] * element size must
+// be 128), 128-byte swizzle, zero fill out of bounds (each dimension is
+// bounded on its own, so a box that runs past the end of one dimension
+// reads zeros, never the next slice's elements).
+inline int make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, const uint64_t (&dims)[4],
+                       const uint64_t (&stride_bytes)[3],
+                       const uint32_t (&box)[4]) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t s[3] = {stride_bytes[0], stride_bytes[1], stride_bytes[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), d, s, bx, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

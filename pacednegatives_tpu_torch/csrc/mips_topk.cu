@@ -7,30 +7,48 @@
 // lower doc index); the merge of the candidates sits outside the kernel, as
 // lax.top_k sits outside pallas_call (mips.py:64-70). The TPU kernel takes
 // the per-block top-k' by k' rounds of max + first-argmax only because
-// Mosaic has no sort (mips.py:9-12); here it is a real selection. Two
-// designs share this file.
+// Mosaic has no sort (mips.py:9-12); here it is a real selection. fp32,
+// bf16 and int8 docs share one design, pnt_mips_topk_sets: a score pass,
+// then a selection pass.
 //
-// fp32 and bf16 docs (K5; at the build_pools scale: B 64, 1M fp32 rows of
-// 768, k 1000, block 1024, k' = k): pnt_mips_topk_sets.
-//   What bounds it: 3.08 GB of fp32 docs read once, 0.92 ms at 3.35 TB/s,
-//   if the fp32 products run on the tensor cores (98.7 GFLOP of fp32 FMA
-//   would be 1.5 ms at 67 TFLOP/s) and the selection costs a few passes
-//   over the scores (257 MB), not a sort of the survivors.
+// What bounds it: the docs read once (K5 at the build_pools scale: B 64,
+// 1M fp32 rows of 768, 3.08 GB, 0.92 ms at 3.35 TB/s; K6 at the online-
+// mining scale: B 16, 8.8M int8 rows, 6.8 GB, 2.0 ms), if the products run
+// on the tensor cores (98.7 GFLOP of fp32 FMA would be 1.5 ms at 67
+// TFLOP/s), the int8 values are widened faster than they arrive, and the
+// selection costs a few passes over the fp32 scores (B * N * 4 bytes: 257
+// MB at K5's scale, 563 MB at K6's), not a sort of the survivors.
 //   1. Scores (mips_scores_kernel): S[B, N] = Q . Docs^T, each doc row read
 //      once. One persistent CTA per SM walks tiles of 256 docs x 64 queries
 //      (hopper_pipeline.cuh): the producer warpgroup TMA-loads each tile's
-//      doc box (256 rows x 128 bytes of D) and the queries' box into a
+//      doc box (256 rows x 128 bytes of D) and the queries' boxes into a
 //      four-stage ring (128-byte swizzle); each of two consumer warpgroups
 //      owns 128 of the docs as two m64 wgmma tiles against n64 queries,
-//      fp32 accumulation. fp32 docs: 3xTF32. The consumer reads its tf32 A
-//      fragments from the swizzled doc box, splits each value into a tf32
-//      high part and the fp32 residual (x - hi) in registers, and issues
-//      m64n64k8 wgmmas lo.q_hi + hi.q_lo + hi.q_hi (B = the queries' high
-//      and low parts, split by the wrapper, K-major from shared memory). The
-//      dropped lo.lo term and the residuals' tf32 rounding leave ~2^-21
-//      relative per product, far inside the fp32 summation tolerance the
-//      checks hold it to. bf16 docs: m64n64k16 bf16 wgmmas, both operands
-//      from shared memory, against the queries rounded to bf16.
+//      fp32 accumulation.
+//      fp32 docs: 3xTF32. The consumer reads its tf32 A fragments from the
+//      swizzled doc box, splits each value into a tf32 high part and the
+//      fp32 residual (x - hi) in registers, and issues m64n64k8 wgmmas
+//      lo.q_hi + hi.q_lo + hi.q_hi (B = the queries' high and low parts,
+//      split by the wrapper, K-major from shared memory). The dropped lo.lo
+//      term and the residuals' tf32 rounding leave ~2^-21 relative per
+//      product, far inside the fp32 summation tolerance the checks hold it
+//      to.
+//      bf16 docs: m64n64k16 bf16 wgmmas, both operands from shared memory,
+//      against the queries rounded to bf16.
+//      int8 docs: a stage holds 128 int8 values of each doc row (its 128
+//      bytes) and two 64-column boxes of the bf16 queries. Each consumer
+//      thread reads its A fragments' bytes from the swizzled box as two
+//      16-byte loads a row and widens them in registers, four at a time,
+//      exactly (i8x4_to_bf16x2: an xor, four byte permutes into fp32
+//      2^23 + b + 128, four subtractions, two permutes that keep the upper
+//      halves), then runs bf16 wgmmas with A from registers against the
+//      queries rounded to bf16 (m64n16k16 when B <= 16, as in the online
+//      step, else m64n64k16); each doc's fp32 scale multiplies its fp32
+//      sums before the score is stored. Not int8 x int8 IMMA, which would
+//      quantise the queries: another function. The reduction order along D
+//      is permuted so that a thread's 16 fragment values of a 16-column
+//      step are 4 consecutive bytes: the queries' columns are permuted the
+//      same way (prep_queries_kernel), a sum over D in another order.
 //   2. Selection (topk_segments_kernel): one CTA per (query, segment) finds
 //      the set of the segment's top-kk keys with a radix select (12 + 12 + 8
 //      bits of the order-preserving value, a shared-memory histogram per
@@ -43,63 +61,20 @@
 //      SM) and kk = k.
 //   The merge is an exact top-k on the packed keys (the wrapper).
 //
-// int8 docs (K6 at the online-mining scale: B 16, 8.8M int8 rows of 768,
-// k 129, block 4096, k' 32): pnt_mips_topk, one CTA of 8 warps per (doc
-// block, tile of 16 queries).
-//   What bounds it: 6.8 GB of int8, ~2.0 ms at 3.35 TB/s.
-//   The int8 values are converted to bf16 in shared memory (exact: |v| <=
-//   127) and multiplied by bf16 WMMA against the queries rounded to bf16,
-//   with fp32 sums and the row's fp32 scale applied to the sum (not int8 x
-//   int8 IMMA, which would quantise the queries: another function). The
-//   CTA walks its block in chunks of 128 docs: each chunk's 16 x 128 scores
-//   go to shared memory through D in slabs of 64, the next slab's loads
-//   kept in registers while the current one multiplies. Each warp then
-//   updates the running top-k' of its two query rows: a key packs
-//   (order-preserving value bits, ~index) into 64 bits; a threshold test
-//   against the row's k'-th key rejects most scores in one compare once the
-//   list is full; the survivors are compacted with a ballot, bitonic-sorted
-//   by the warp and merged into the sorted list in place. At k' 32 of 4096
-//   the threshold rejects almost everything, so this serial merge costs
-//   little there.
-//
-// Both: no atomics that decide a result (the selection's shared-memory
-// counters only place keys of a set), so the merged top-k repeats bitwise.
-// Ties: -0 is folded into +0 before values are compared inside a block or
-// segment, as the TPU kernel's == comparisons do.
+// No atomics that decide a result (the selection's shared-memory counters
+// only place keys of a set), so the merged top-k repeats bitwise. Ties: -0
+// is folded into +0 before values are compared inside a block or segment,
+// as the TPU kernel's == comparisons do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_pipeline.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int QT = 16;   // query rows per CTA: one WMMA m-tile
-constexpr int CN = 128;  // docs per chunk: 16 columns per warp
-constexpr int KS = 64;   // depth of one slab
-constexpr int ROWS_PER_WARP = QT / NWARPS;
-constexpr int S_LD = CN + 4;  // fp32 score tile row, a multiple of 4
-constexpr int KMAX = 1024;    // longest running list (shared memory)
-constexpr int C_PER_LANE = CN / 32;
-
 enum { DOC_F32 = 0, DOC_BF16 = 1, DOC_I8 = 2 };
-
-using Op = __nv_bfloat16;      // operand type in shared memory
-constexpr int LD = KS + 8;     // 144-byte operand rows: 16-byte aligned
-
-constexpr size_t smem_bytes(int kpb) {
-  return size_t(QT) * kpb * 8            // running lists
-         + size_t(NWARPS) * CN * 8       // per-warp candidate buffer
-         + size_t(QT) * S_LD * 4         // score tile
-         + size_t(QT) * LD * sizeof(Op)  // query slab
-         + size_t(CN) * LD * sizeof(Op);  // doc slab
-}
 
 // Order-preserving map of fp32 bits (larger value -> larger key). -0 is
 // folded into +0 first, so equal values tie on the index as the TPU
@@ -110,238 +85,25 @@ __device__ __forceinline__ uint32_t ord_key(float v) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// ord_key with the complemented index below it (lower index -> larger key).
-__device__ __forceinline__ unsigned long long make_key(float v, unsigned idx) {
-  return (static_cast<unsigned long long>(ord_key(v)) << 32) | (~idx);
-}
-
-// Number of entries of the descending list a[0, n) greater than key.
-__device__ __forceinline__ int count_greater(const unsigned long long* a,
-                                             int n, unsigned long long key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] > key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    mips_topk_kernel(const Op* __restrict__ Q, const int8_t* __restrict__ docs,
-                     const float* __restrict__ scales,
-                     long long* __restrict__ cand, int B, int D,
-                     int block_n, int kpb, int n_qtiles) {
-  constexpr int DVEC = 16;                // doc elements per 16-byte load
-  constexpr int DPR = KS / DVEC;          // loads per doc row of a slab
-  constexpr int DLOADS = CN * DPR / THREADS;
-  constexpr int QVEC = 16 / sizeof(Op);
-  constexpr int QPR = KS / QVEC;
-  constexpr int QLOADS = QT * QPR;  // <= THREADS
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned long long* R = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* Cb = R + size_t(QT) * kpb;
-  float* S = reinterpret_cast<float*>(Cb + NWARPS * CN);
-  Op* Qs = reinterpret_cast<Op*>(S + QT * S_LD);
-  Op* Ds = Qs + QT * LD;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int qt = blockIdx.x % n_qtiles;
-  const int blk = blockIdx.x / n_qtiles;
-  const int q0 = qt * QT;
-  const int rows = min(QT, B - q0);
-  const long long doc0 = static_cast<long long>(blk) * block_n;
-  const int nchunks = (block_n + CN - 1) / CN;
-  const int nslabs = (D + KS - 1) / KS;
-  const int nsteps = nchunks * nslabs;
-
-  uint4 draw[DLOADS];
-  uint4 qraw;
-  auto load_step = [&](int step) {
-    const int chunk = step / nslabs, k0 = (step % nslabs) * KS;
+// Four int8 values (one 32-bit word, bytes 0..3) as two bf16 pairs, exact:
+// each byte b, offset to b + 128, becomes the low bits of the fp32 2^23 +
+// b + 128; subtracting 2^23 + 128 leaves b, whose upper 16 bits are its
+// bf16 (|b| <= 128 needs 8 significant bits). lo = bytes (0, 1), hi =
+// bytes (2, 3), the lower byte in the low half.
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-    for (int i = 0; i < DLOADS; ++i) {
-      const int id = tid + i * THREADS;
-      const int n = id / DPR, k = k0 + (id % DPR) * DVEC;
-      const int col = chunk * CN + n;
-      draw[i] = make_uint4(0, 0, 0, 0);
-      if (col < block_n && k < D)
-        draw[i] = __ldg(reinterpret_cast<const uint4*>(
-            docs + (doc0 + col) * D + k));
-    }
-    qraw = make_uint4(0, 0, 0, 0);
-    if (tid < QLOADS) {
-      const int r = tid / QPR, k = k0 + (tid % QPR) * QVEC;
-      if (r < rows && k < D)
-        qraw = __ldg(reinterpret_cast<const uint4*>(
-            Q + static_cast<long long>(q0 + r) * D + k));
-    }
-  };
-  auto store_step = [&]() {
-#pragma unroll
-    for (int i = 0; i < DLOADS; ++i) {
-      const int id = tid + i * THREADS;
-      const int n = id / DPR, kk = (id % DPR) * DVEC;
-      const int8_t* b = reinterpret_cast<const int8_t*>(&draw[i]);
-      __align__(16) __nv_bfloat162 h[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        h[e] = __floats2bfloat162_rn(static_cast<float>(b[2 * e]),
-                                     static_cast<float>(b[2 * e + 1]));
-      uint4* dst = reinterpret_cast<uint4*>(Ds + n * LD + kk);
-      dst[0] = reinterpret_cast<const uint4*>(h)[0];
-      dst[1] = reinterpret_cast<const uint4*>(h)[1];
-    }
-    if (tid < QLOADS)
-      *reinterpret_cast<uint4*>(Qs + (tid / QPR) * LD + (tid % QPR) * QVEC) =
-          qraw;
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> wacc;
-
-  // per-warp running-list sizes of its rows (same value in every lane)
-  int cnt[ROWS_PER_WARP];
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_WARP; ++j) cnt[j] = 0;
-  unsigned long long* Cw = Cb + warp * CN;
-
-  load_step(0);
-  for (int step = 0; step < nsteps; ++step) {
-    const int chunk = step / nslabs, slab = step % nslabs;
-    if (slab == 0) wmma::fill_fragment(wacc, 0.0f);
-    store_step();
-    __syncthreads();
-    if (step + 1 < nsteps) load_step(step + 1);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qs + kk, LD);
-      wmma::load_matrix_sync(b, Ds + warp * 16 * LD + kk, LD);
-      wmma::mma_sync(wacc, a, b, wacc);
-    }
-    __syncthreads();  // the slab buffers are free for the next store
-    if (slab != nslabs - 1) continue;
-
-    // the chunk's 16 x 128 scores
-    wmma::store_matrix_sync(S + warp * 16, wacc, S_LD, wmma::mem_row_major);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < ROWS_PER_WARP; ++j) {
-      const int r = warp * ROWS_PER_WARP + j;
-      if (r >= rows) continue;
-      unsigned long long* Rr = R + size_t(r) * kpb;
-      const bool full = cnt[j] == kpb;
-      const unsigned long long thresh = full ? Rr[kpb - 1] : 0ull;
-      // 1. threshold test and ballot compaction of the survivors
-      int c = 0;
-#pragma unroll
-      for (int t = 0; t < C_PER_LANE; ++t) {
-        const int n = t * 32 + lane;
-        const int col = chunk * CN + n;
-        bool pass = false;
-        unsigned long long key = 0;
-        if (col < block_n) {
-          float v = S[r * S_LD + n];
-          v *= __ldg(scales + doc0 + col);
-          key = make_key(v, static_cast<unsigned>(doc0 + col));
-          pass = !full || key > thresh;
-        }
-        const unsigned ballot = __ballot_sync(0xffffffffu, pass);
-        if (pass) Cw[c + __popc(ballot & ((1u << lane) - 1u))] = key;
-        c += __popc(ballot);
-      }
-      if (c == 0) continue;
-      // 2. bitonic sort of the survivors, descending (0-keys pad to 2^m)
-      int P = 1;
-      while (P < c) P <<= 1;
-      for (int i = c + lane; i < P; i += 32) Cw[i] = 0ull;
-      __syncwarp();
-      for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          for (int t = lane; t < P / 2; t += 32) {
-            const int i = 2 * stride * (t / stride) + (t % stride);
-            const int o = i + stride;
-            const unsigned long long a = Cw[i], b = Cw[o];
-            const bool desc = (i & size) == 0;
-            if ((a < b) == desc) { Cw[i] = b; Cw[o] = a; }
-          }
-          __syncwarp();
-        }
-      }
-      // 3. merge into the running list in place: the survivors' new
-      // positions first (the list still unmoved), then the list's entries
-      // top-down (each moves up by the survivors ahead of it), then the
-      // survivors
-      const int n_old = cnt[j];
-      int cpos[C_PER_LANE];
-      unsigned long long ckey[C_PER_LANE];
-#pragma unroll
-      for (int t = 0; t < C_PER_LANE; ++t) {
-        const int i = t * 32 + lane;
-        cpos[t] = kpb;
-        if (i < c) {
-          ckey[t] = Cw[i];
-          cpos[t] = i + count_greater(Rr, n_old, ckey[t]);
-        }
-      }
-      __syncwarp();
-      for (int hi = n_old; hi > 0; hi -= 32) {
-        const int i = hi - 32 + lane;
-        unsigned long long key = 0;
-        int pos = kpb;
-        if (i >= 0) {
-          key = Rr[i];
-          pos = i + count_greater(Cw, c, key);
-        }
-        __syncwarp();
-        if (i >= 0 && pos < kpb && pos != i) Rr[pos] = key;
-        __syncwarp();
-      }
-#pragma unroll
-      for (int t = 0; t < C_PER_LANE; ++t)
-        if (cpos[t] < kpb) Rr[cpos[t]] = ckey[t];
-      __syncwarp();
-      cnt[j] = min(n_old + c, kpb);
-    }
-  }
-
-  // the block's candidates as merge keys (a list key with its top bit
-  // flipped: signed order is value descending, then the lower index), in
-  // the (B, num_blocks, k') slots of this CTA only
-  __syncthreads();
-  const int num_blocks = gridDim.x / n_qtiles;
-  for (int r = 0; r < rows; ++r) {
-    const unsigned long long* Rr = R + size_t(r) * kpb;
-    const long long out =
-        (static_cast<long long>(q0 + r) * num_blocks + blk) * kpb;
-    for (int i = tid; i < kpb; i += THREADS)
-      cand[out + i] = static_cast<long long>(Rr[i] ^ 0x8000000000000000ull);
-  }
-}
-
-int launch(const void* q, const void* docs, const float* scales,
-           long long* cand, int B, int N, int D, int block_n, int kpb,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(kpb);
-  cudaError_t err = cudaFuncSetAttribute(
-      mips_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (B + QT - 1) / QT;
-  const long long grid = static_cast<long long>(N / block_n) * n_qtiles;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  mips_topk_kernel<<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(
-      static_cast<const Op*>(q), static_cast<const int8_t*>(docs), scales,
-      cand, B, D, block_n, kpb, n_qtiles);
-  return static_cast<int>(cudaGetLastError());
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) -
+           8388736.0f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
 // ---------------------------------------------------------------------------
-// fp32 docs: 3xTF32 scores, then a set selection per (query, segment)
+// Scores, then a set selection per (query, segment)
 // ---------------------------------------------------------------------------
 
 constexpr int SC_DOCS = 256, SC_Q = 64, SC_STAGES = 4;
@@ -358,31 +120,35 @@ __device__ __forceinline__ float swizzled(const unsigned char* tile, int r,
       tile + r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2)));
 }
 
-template <int N>
-__device__ __forceinline__ void keep_regs(uint32_t (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-
-// S[B, N] = Q . Docs^T, one 128-byte slice of D (32 fp32 or 64 bf16) a
-// stage. kF32: 3xTF32 with the doc operand split in registers and the
-// queries' high and low parts from shared memory; else bf16 products with
-// both operands from shared memory.
-template <bool kF32>
+// S[B, N] = Q . Docs^T, one 128-byte slice of each doc row (32 fp32, 64
+// bf16 or 128 int8 values of D) a stage. DOC_F32: 3xTF32 with the doc
+// operand split in registers and the queries' high and low parts from
+// shared memory; DOC_BF16: bf16 products with both operands from shared
+// memory; DOC_I8: the docs widened to bf16 in registers, the queries'
+// two 64-column boxes (bf16, columns in the int8 order) from shared
+// memory, each doc's sums times its scale. NQ: queries a tile (the wgmma's
+// N): 64, or 16 for int8 docs and B <= 16 (the online step's 16 queries),
+// which cuts the products to a quarter.
+template <int kDoc, int NQ>
 __global__ void __launch_bounds__(SC_THREADS, 1)
     mips_scores_kernel(const __grid_constant__ CUtensorMap map_docs,
                        const __grid_constant__ CUtensorMap map_qhi,
                        const __grid_constant__ CUtensorMap map_qlo,
+                       const float* __restrict__ scales,
                        float* __restrict__ S, int B, int N, int D) {
-  constexpr int BK = kF32 ? 32 : 64;  // elements of D a stage
-  constexpr int STAGE_TX = SC_D_BYTES + (kF32 ? 2 : 1) * SC_Q_BYTES;
+  constexpr bool kF32 = kDoc == DOC_F32, kI8 = kDoc == DOC_I8;
+  constexpr int BK = kF32 ? 32 : kI8 ? 128 : 64;  // elements of D a stage
+  static_assert(NQ == 64 || (kI8 && NQ == 16), "n16 tiles: int8 only");
+  constexpr int STAGE_TX = SC_D_BYTES + (kF32 || kI8 ? 2 : 1) * NQ * 128;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // 1024-aligned for the 128-byte swizzle (an offset from the shared
+  // array, so that the fragment reads stay shared loads)
+  unsigned char* smem =
+      smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + SC_STAGES * SC_STAGE);
   uint64_t* empty = full + SC_STAGES;
 
-  const int tiles_q = (B + SC_Q - 1) / SC_Q;
+  const int tiles_q = (B + NQ - 1) / NQ;
   const int tiles = ((N + SC_DOCS - 1) / SC_DOCS) * tiles_q;
   const int nk = (D + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
@@ -405,7 +171,7 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
         // query tiles of one doc tile are neighbours: their doc reads meet
         // in L2
         const int d0 = (tile / tiles_q) * SC_DOCS;
-        const int q0 = (tile % tiles_q) * SC_Q;
+        const int q0 = (tile % tiles_q) * NQ;
         for (int kb = 0; kb < nk; ++kb) {
           hopper::mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = smem + stage * SC_STAGE;
@@ -416,6 +182,9 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
           if (kF32)
             hopper::tma_load_2d(st + SC_D_BYTES + SC_Q_BYTES, &map_qlo,
                                 &full[stage], kb * BK, q0);
+          if (kI8)  // the queries' second 64 columns of this stage
+            hopper::tma_load_2d(st + SC_D_BYTES + SC_Q_BYTES, &map_qhi,
+                                &full[stage], kb * BK + 64, q0);
           if (++stage == SC_STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -426,16 +195,16 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
     const bool leader = threadIdx.x % 128 == 0;
-    float acc[2][32];
+    float acc[2][NQ / 2];
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int d0 = (tile / tiles_q) * SC_DOCS;
-      const int q0 = (tile % tiles_q) * SC_Q;
+      const int q0 = (tile % tiles_q) * NQ;
 #pragma unroll
       for (int s = 0; s < 2; ++s)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[s][i] = 0.0f;
+        for (int i = 0; i < NQ / 2; ++i) acc[s][i] = 0.0f;
       for (int kb = 0; kb < nk; ++kb) {
         hopper::mbar_wait(&full[stage], phase);
         const unsigned char* st = smem + stage * SC_STAGE;
@@ -482,9 +251,55 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
           for (int s = 0; s < 2; ++s)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
-              keep_regs(hi[s][kk]);
-              keep_regs(lo[s][kk]);
+              hopper::keep_regs(hi[s][kk]);
+              hopper::keep_regs(lo[s][kk]);
             }
+        } else if constexpr (kI8) {
+          // A fragments (m16n8k16 bf16 layout per warp) from the swizzled
+          // int8 box: row r's bytes 32t .. 32t + 31 (16-byte chunks 2t and
+          // 2t + 1) hold this thread's four values of each of the stage's
+          // eight 16-column steps, in the wrapper's column order (word kk
+          // of the 32 bytes = step kk: bytes 0, 1 -> columns 2t, 2t + 1;
+          // bytes 2, 3 -> columns 2t + 8, 2t + 9)
+          uint32_t a[2][8][4];
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = cw * 128 + s * 64 + warp * 16 + g + 8 * h;
+              const unsigned char* row = st + r * 128;
+              const uint4 v0 = *reinterpret_cast<const uint4*>(
+                  row + (((2 * t) ^ (r & 7)) << 4));
+              const uint4 v1 = *reinterpret_cast<const uint4*>(
+                  row + (((2 * t + 1) ^ (r & 7)) << 4));
+              const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w,
+                                     v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk)
+                i8x4_to_bf16x2(w[kk], a[s][kk][h], a[s][kk][2 + h]);
+            }
+          hopper::fence_regs(acc[0]);
+          hopper::fence_regs(acc[1]);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const uint64_t qd = hopper::make_desc(
+                st + SC_D_BYTES + (kk / 4) * SC_Q_BYTES + (kk % 4) * 32, 16,
+                1024);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              if constexpr (NQ == 16)
+                hopper::wgmma_m64n16k16_bf16_ra<0>(acc[s], a[s][kk], qd);
+              else
+                hopper::wgmma_m64n64k16_bf16_ra<0>(acc[s], a[s][kk], qd);
+            }
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) hopper::keep_regs(a[s][kk]);
         } else {
           hopper::fence_regs(acc[0]);
           hopper::fence_regs(acc[1]);
@@ -516,17 +331,70 @@ __global__ void __launch_bounds__(SC_THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int d = d0 + cw * 128 + s * 64 + warp * 16 + g + 8 * h;
           if (d >= N) continue;
+          const float scale = kI8 ? __ldg(scales + d) : 1.0f;
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < NQ / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int q = q0 + 8 * j + 2 * t + e;
+              const float v = acc[s][4 * j + 2 * h + e];
               if (q < B)
-                S[static_cast<long long>(q) * N + d] =
-                    acc[s][4 * j + 2 * h + e];
+                S[static_cast<long long>(q) * N + d] = kI8 ? v * scale : v;
             }
         }
     }
+  }
+}
+
+// The queries as the score kernel reads them, from fp32 (B, D): DOC_F32:
+// q_hi = the tf32 high parts (rounded to the nearest, ties away), q_lo =
+// the residuals, both fp32 (B, D); DOC_BF16: q_hi = bf16 (B, D), rounded
+// to the nearest even; DOC_I8: q_hi = bf16 (B, qcols), qcols = D rounded
+// up to 128, zero-padded, each 128 columns in the int8 fragments' order:
+// position 16 kk + 2 t + e + 8 f holds column 32 t + 4 kk + 2 f + e (kk
+// the 16-column step, t a lane's place in its quad, e and f the halves of
+// its A fragment), so a lane's values of all eight steps are 32
+// consecutive bytes of a doc row.
+template <int kDoc>
+__global__ void prep_queries_kernel(const float* __restrict__ q, int B,
+                                    int D, int qcols, void* __restrict__ q_hi,
+                                    float* __restrict__ q_lo) {
+  const long long n = static_cast<long long>(B) * qcols;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long b = i / qcols;
+    const int p = static_cast<int>(i % qcols);
+    if constexpr (kDoc == DOC_F32) {
+      const float x = q[b * D + p];
+      const float hi = __uint_as_float(hopper::to_tf32(x));
+      static_cast<float*>(q_hi)[i] = hi;
+      q_lo[i] = x - hi;
+    } else {
+      int col = p;
+      if constexpr (kDoc == DOC_I8) {
+        const int r = p % 128, kk = r / 16, f = (r / 8) % 2, t = (r % 8) / 2,
+                  e = r % 2;
+        col = p - r + 32 * t + 4 * kk + 2 * f + e;
+      }
+      static_cast<__nv_bfloat16*>(q_hi)[i] =
+          __float2bfloat16_rn(col < D ? q[b * D + col] : 0.0f);
+    }
+  }
+}
+
+// The merge's keys back to (fp32 value, int64 index): the inverse of
+// merge_key.
+__global__ void unpack_keys_kernel(const long long* __restrict__ keys,
+                                   long long n, float* __restrict__ values,
+                                   long long* __restrict__ indices) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long key = keys[i];
+    const int32_t hi = static_cast<int32_t>(key >> 32);
+    values[i] = __int_as_float(hi < 0 ? (hi ^ 0x7fffffff) : hi);
+    indices[i] = 0xffffffffLL - (key & 0xffffffffLL);
   }
 }
 
@@ -740,73 +608,83 @@ __global__ void __launch_bounds__(SEL_THREADS)
 
 }  // namespace
 
-// C entry point for int8 docs (doc_type 2), bound with ctypes. q: (B, D)
-// bf16; docs (N, D) int8 with scales (N,) fp32 (fp32 and bf16 docs go
-// through pnt_mips_topk_sets); cand: (B, N / block_n, kpb) int64 merge
-// keys, each block's top k' of each query.
-// Returns cudaGetLastError() after the launch (0 = success). Launches on
-// `stream`; allocates nothing.
-extern "C" int pnt_mips_topk(const void* q, const void* docs,
-                             const void* scales, void* cand, int B, int N,
-                             int D, int block_n, int kpb, int doc_type,
-                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || N <= 0 || D <= 0 || (D % 16) || block_n <= 0 ||
-      (N % block_n) || kpb <= 0 || kpb > KMAX || kpb > block_n ||
-      doc_type != DOC_I8 || scales == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, docs, static_cast<const float*>(scales),
-                static_cast<long long*>(cand), B, N, D, block_n, kpb,
-                static_cast<cudaStream_t>(stream));
-}
-
-// C entry point for fp32 and bf16 docs, bound with ctypes: scores (B, N)
-// fp32 scratch = Q . docs^T, then the top-kk keys of every (query, segment
-// of seg_len rows) into cand (B, nseg, kk) int64. doc_type 0: docs (N, D)
-// fp32, q_hi / q_lo (B, D) fp32, the queries' tf32 high parts and
-// residuals (3xTF32); doc_type 1: docs bf16, q_hi the queries in bf16,
-// q_lo unused. Two launches on `stream`; allocates nothing. Returns 0 or a
+// C entry point, bound with ctypes: the queries prepared into q_hi /
+// q_lo (scratch), scores (B, N) fp32 scratch = Q . docs^T, then the top-kk
+// keys of every (query, segment of seg_len rows) into cand (B, nseg, kk)
+// int64. q: (B, D) fp32. doc_type 0: docs (N, D) fp32, q_hi and q_lo
+// (B, D) fp32, the queries' tf32 high parts and residuals (3xTF32);
+// doc_type 1: docs bf16, q_hi (B, D) bf16; doc_type 2: docs int8 with
+// scales (N,) fp32, q_hi (B, 128 * ceil(D / 128)) bf16 (prep_queries_kernel
+// says what they hold). q_lo unused but for fp32, scales but for int8.
+// Three launches on `stream`; allocates nothing. Returns 0 or a
 // cudaError_t.
-extern "C" int pnt_mips_topk_sets(const void* q_hi, const void* q_lo,
-                                  const void* docs, void* scores, void* cand,
-                                  int B, int N, int D, int seg_len, int nseg,
-                                  int kk, int doc_type, int device,
-                                  void* stream) {
+extern "C" int pnt_mips_topk_sets(const void* q, void* q_hi, void* q_lo,
+                                  const void* docs, const void* scales,
+                                  void* scores, void* cand, int B, int N,
+                                  int D, int seg_len, int nseg, int kk,
+                                  int doc_type, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool f32 = doc_type == DOC_F32;
-  if ((!f32 && doc_type != DOC_BF16) || B <= 0 || B > 65535 || N <= 0 ||
-      D <= 0 || (D % 16) || seg_len <= 0 || nseg <= 0 ||
+  const bool f32 = doc_type == DOC_F32, i8 = doc_type == DOC_I8;
+  if ((!f32 && !i8 && doc_type != DOC_BF16) || (i8 && scales == nullptr) ||
+      (f32 && q_lo == nullptr) || B <= 0 || B > 65535 || N <= 0 || D <= 0 ||
+      (D % 16) || seg_len <= 0 || nseg <= 0 ||
       static_cast<long long>(seg_len) * (nseg - 1) >= N ||
       static_cast<long long>(seg_len) * nseg < N || kk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const CUtensorMapDataType type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const int esize = f32 ? 4 : 2, bk = 128 / esize;
+  const CUtensorMapDataType qtype = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType dtype = i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : qtype;
+  const int dsize = f32 ? 4 : i8 ? 1 : 2, qsize = f32 ? 4 : 2;
+  const int qcols = i8 ? (D + 127) / 128 * 128 : D;
+  const int nq = i8 && B <= 16 ? 16 : 64;  // queries a score tile
   CUtensorMap map_docs, map_qhi, map_qlo;
-  int rc = hopper::make_map_2d(&map_docs, type, docs, D, N,
-                               static_cast<uint64_t>(D) * esize, bk, SC_DOCS);
+  int rc = hopper::make_map_2d(&map_docs, dtype, docs, D, N,
+                               static_cast<uint64_t>(D) * dsize, 128 / dsize,
+                               SC_DOCS);
   if (!rc)
-    rc = hopper::make_map_2d(&map_qhi, type, q_hi, D, B,
-                             static_cast<uint64_t>(D) * esize, bk, SC_Q);
-  if (!rc)  // bf16: an unused copy of the first
-    rc = hopper::make_map_2d(&map_qlo, type, f32 ? q_lo : q_hi, D, B,
-                             static_cast<uint64_t>(D) * esize, bk, SC_Q);
+    rc = hopper::make_map_2d(&map_qhi, qtype, q_hi, qcols, B,
+                             static_cast<uint64_t>(qcols) * qsize,
+                             128 / qsize, nq);
+  if (!rc)  // bf16 and int8: an unused copy of the first
+    rc = hopper::make_map_2d(&map_qlo, qtype, f32 ? q_lo : q_hi, qcols, B,
+                             static_cast<uint64_t>(qcols) * qsize,
+                             128 / qsize, nq);
   if (rc) return rc;
-  auto kernel = f32 ? mips_scores_kernel<true> : mips_scores_kernel<false>;
+  auto kernel = f32       ? mips_scores_kernel<DOC_F32, 64>
+                : nq == 16 ? mips_scores_kernel<DOC_I8, 16>
+                : i8       ? mips_scores_kernel<DOC_I8, 64>
+                           : mips_scores_kernel<DOC_BF16, 64>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SC_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  float* lo = static_cast<float*>(q_lo);
+  const int prep_blocks = static_cast<int>(
+      (static_cast<long long>(B) * qcols + 255) / 256 < 1024
+          ? (static_cast<long long>(B) * qcols + 255) / 256
+          : 1024);
+  if (f32)
+    prep_queries_kernel<DOC_F32><<<prep_blocks, 256, 0, s>>>(qf, B, D, qcols,
+                                                             q_hi, lo);
+  else if (i8)
+    prep_queries_kernel<DOC_I8><<<prep_blocks, 256, 0, s>>>(qf, B, D, qcols,
+                                                            q_hi, lo);
+  else
+    prep_queries_kernel<DOC_BF16><<<prep_blocks, 256, 0, s>>>(qf, B, D, qcols,
+                                                              q_hi, lo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>((N + SC_DOCS - 1) / SC_DOCS) *
-                          ((B + SC_Q - 1) / SC_Q);
+                          ((B + nq - 1) / nq);
   const int grid = static_cast<int>(
       tiles < hopper::sm_count(device) ? tiles : hopper::sm_count(device));
   float* S = static_cast<float*>(scores);
-  kernel<<<grid, SC_THREADS, SC_SMEM, s>>>(map_docs, map_qhi, map_qlo, S, B,
-                                           N, D);
+  kernel<<<grid, SC_THREADS, SC_SMEM, s>>>(map_docs, map_qhi, map_qlo,
+                                           static_cast<const float*>(scales),
+                                           S, B, N, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   topk_segments_kernel<<<dim3(nseg, B), SEL_THREADS, 0, s>>>(
@@ -814,3 +692,19 @@ extern "C" int pnt_mips_topk_sets(const void* q_hi, const void* q_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// C entry point, bound with ctypes: n packed merge keys (int64) -> values
+// (fp32) and indices (int64). One launch on `stream`. Returns 0 or a
+// cudaError_t.
+extern "C" int pnt_mips_unpack_keys(const void* keys, void* values,
+                                    void* indices, long long n, int device,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((n + 255) / 256 < 1024 ? (n + 255) / 256
+                                                             : 1024);
+  unpack_keys_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), n, static_cast<float*>(values),
+      static_cast<long long*>(indices));
+  return static_cast<int>(cudaGetLastError());
+}

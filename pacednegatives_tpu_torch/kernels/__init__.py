@@ -64,13 +64,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # q, docs, scales, cand, B, N, D, block_n, k_per_block, doc_type
-    # (2 int8), device, stream
-    "pnt_mips_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q_hi, q_lo, docs, scores, cand, B, N, D, seg_len, nseg, kk,
-    # doc_type (0 fp32, 1 bf16), device, stream
-    "pnt_mips_topk_sets": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P),
+    # q, q_hi, q_lo, docs, scales, scores, cand, B, N, D, seg_len, nseg,
+    # kk, doc_type (0 fp32, 1 bf16, 2 int8), device, stream
+    "pnt_mips_topk_sets": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
+    # keys, values, indices, n, device, stream
+    "pnt_mips_unpack_keys": (_P, _P, _P, _LL, _I, _P),
 }
 
 

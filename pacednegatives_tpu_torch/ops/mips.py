@@ -11,14 +11,13 @@ only where more than k' of the true top-k fall in one block), and it
 depends on ``block_n`` and k', as the JAX function does.
 
 On a CUDA tensor each wrapper launches the hand-written kernels in
-``csrc/mips_topk.cu`` or raises: fp32 docs (K5's ``build_pools`` use) and
-bf16 docs go through tensor-core scores (3xTF32 for fp32) and a radix
-select of each (query, segment)'s top keys as a set (segments = the blocks
-when k' < k; when k' >= k the function is the exact top-k and the segments
-are a few long runs of rows); int8 docs (K6) through one launch that keeps
-each query tile's running top-k' per block. On a CPU tensor it runs the
-plain PyTorch version, which computes the per-block top-k' with a stable
-sort.
+``csrc/mips_topk.cu`` or raises: fp32 docs (K5's ``build_pools`` use), bf16
+docs and int8 docs (K6) go through tensor-core scores (3xTF32 for fp32; int8
+widened to bf16 in registers, times the row's scale) and a radix select of
+each (query, segment)'s top keys as a set (segments = the blocks when
+k' < k; when k' >= k the function is the exact top-k and the segments are a
+few long runs of rows). On a CPU tensor it runs the plain PyTorch version,
+which computes the per-block top-k' with a stable sort.
 
 The merge of the candidates packs each (value, doc index) into one int64
 key whose signed order is (value descending, lower index first): the
@@ -47,8 +46,8 @@ from pacednegatives_tpu_torch import kernels
 # Docs dequantised or scored per plain-version slab: the fp32 transient is
 # O(slab) (~200 MB at D 768), never the full index (27 GB at 8.8M x 768).
 _PLAIN_SLAB_ROWS = 65536
-# The int8 kernel keeps each query row's running top-k' in shared memory;
-# the fp32 / bf16 one takes the same bound.
+# Keys a (query, segment) keeps, at most: the bound of the kernels before
+# the set selection, kept so that the wrappers take the same arguments.
 KERNEL_MAX_K_PER_BLOCK = 1024
 # An H100's SMs: the selection's long segments aim at two CTAs each.
 SM_COUNT = 132
@@ -92,8 +91,23 @@ def unpack_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _merge_keys(keys: torch.Tensor, k: int):
     """(B, C) candidate keys -> the (B, k) top-k (values, indices),
-    descending."""
-    return unpack_keys(torch.topk(keys, k, dim=1, sorted=True).values)
+    descending. On the card the unpack is one launch of
+    ``pnt_mips_unpack_keys`` (``unpack_keys`` is a handful)."""
+    top = torch.topk(keys, k, dim=1, sorted=True).values
+    if top.device.type != "cuda":
+        return unpack_keys(top)
+    values = torch.empty(top.shape, dtype=torch.float32, device=top.device)
+    indices = torch.empty(top.shape, dtype=torch.int64, device=top.device)
+    rc = kernels.library().pnt_mips_unpack_keys(
+        top.data_ptr(), values.data_ptr(), indices.data_ptr(), top.numel(),
+        _device_index(top.device), torch.cuda.current_stream(top.device)
+        .cuda_stream)
+    kernels.check(rc, "mips_unpack_keys")
+    return values, indices
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _merge_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
@@ -168,8 +182,8 @@ def _launch(queries, docs, scales, k, block_n, k_per_block, name):
 
 def set_segments(B: int, N: int, block_n: int, k: int, kpb: int,
                  fold: bool | None = None) -> tuple[int, int, int]:
-    """(rows a segment, segments, keys kept a segment) of the fp32 / bf16
-    kernels' selection. k' < k: the blocks, k' each. k' >= k (or ``fold``):
+    """(rows a segment, segments, keys kept a segment) of the kernels'
+    selection. k' < k: the blocks, k' each. k' >= k (or ``fold``):
     the blockwise function is the exact top-k, so the rows are cut into a
     few long runs, about two CTAs an SM over the B queries, each at least k
     rows (a multiple of 4, for 16-byte loads), and each keeps k."""
@@ -186,7 +200,7 @@ def set_segments(B: int, N: int, block_n: int, k: int, kpb: int,
 def _kernel_candidates(queries, docs, scales, k, block_n, k_per_block, name,
                        fold: bool | None = None):
     """Check the operands and launch the kernels once: the (B, C) candidate
-    keys before the merge. ``fold`` (fp32 / bf16 docs) forces the segments:
+    keys before the merge. ``fold`` forces the segments:
     the blocks (False) or long runs of rows (True); None picks by k' >= k."""
     dev = queries.device
     if dev.type != "cuda" or docs.device != dev or (
@@ -209,39 +223,31 @@ def _kernel_candidates(queries, docs, scales, k, block_n, k_per_block, name,
             f"(D={D}, B={B}, k'={kpb}, N={N})")
     if k > N:
         raise ValueError(f"{name}: k={k} > N={N}")
+    if B > 65535:
+        raise ValueError(f"{name}: the kernel takes B <= 65535")
     docs = docs.contiguous()
-    device = (dev.index if dev.index is not None
-              else torch.cuda.current_device())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if docs.dtype != torch.int8:
-        if B > 65535:
-            raise ValueError(f"{name}: the kernel takes B <= 65535")
-        q_hi = _query_operand(queries, docs.dtype).contiguous()
-        q_lo = None
-        if docs.dtype == torch.float32:
-            # the queries' tf32 high parts (rounded to the nearest: the low
-            # 13 bits cleared) and their residuals
-            q = q_hi
-            q_hi = ((q.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
-            q_lo = q - q_hi
-        seg, nseg, kk = set_segments(B, N, block_n, k, kpb, fold)
-        scores = torch.empty((B, N), dtype=torch.float32, device=dev)
-        cand = torch.empty((B, nseg, kk), dtype=torch.int64, device=dev)
-        rc = kernels.library().pnt_mips_topk_sets(
-            q_hi.data_ptr(), q_lo.data_ptr() if q_lo is not None else None,
-            docs.data_ptr(), scores.data_ptr(), cand.data_ptr(), B, N, D,
-            seg, nseg, kk, _DOC_TYPES[docs.dtype], device, stream)
-        kernels.check(rc, name)
-        return cand.view(B, nseg * kk)
-    q_op = _query_operand(queries, docs.dtype).contiguous()
-    scales = scales.float().contiguous()
-    cand = torch.empty((B, num_blocks, kpb), dtype=torch.int64, device=dev)
-    rc = kernels.library().pnt_mips_topk(
-        q_op.data_ptr(), docs.data_ptr(), scales.data_ptr(), cand.data_ptr(),
-        B, N, D, block_n, kpb, _DOC_TYPES[docs.dtype], device, stream,
-    )
+    q = queries.float().contiguous()
+    # scratch for the queries as the score kernel reads them (fp32: tf32
+    # high parts and residuals; bf16; int8: bf16, padded to 128 columns)
+    fp32 = docs.dtype == torch.float32
+    qcols = -(-D // 128) * 128 if docs.dtype == torch.int8 else D
+    q_hi = torch.empty((B, qcols), dtype=q.dtype if fp32 else torch.bfloat16,
+                       device=dev)
+    q_lo = torch.empty_like(q) if fp32 else None
+    if scales is not None:
+        scales = scales.float().contiguous()
+    seg, nseg, kk = set_segments(B, N, block_n, k, kpb, fold)
+    scores = torch.empty((B, N), dtype=torch.float32, device=dev)
+    cand = torch.empty((B, nseg, kk), dtype=torch.int64, device=dev)
+    rc = kernels.library().pnt_mips_topk_sets(
+        q.data_ptr(), q_hi.data_ptr(),
+        q_lo.data_ptr() if q_lo is not None else None, docs.data_ptr(),
+        scales.data_ptr() if scales is not None else None,
+        scores.data_ptr(), cand.data_ptr(), B, N, D, seg, nseg, kk,
+        _DOC_TYPES[docs.dtype], _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, name)
-    return cand.view(B, num_blocks * kpb)
+    return cand.view(B, nseg * kk)
 
 
 def mips_topk_pallas(queries: torch.Tensor, docs: torch.Tensor, k: int,

@@ -93,6 +93,93 @@ def test_attention_matches_plain(cuda, Lq, Lk, dk, out_dtype):
     assert ((l - rl).abs() / rl).max().item() <= 1e-3
 
 
+def _own_generator(seed: int) -> torch.Generator:
+    """A generator of the test's own: the tests added after the others draw
+    from it, so the earlier tests keep the inputs the shared one gives
+    them."""
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _attention_inputs(g, B, H, Lq, Lk, dk, fused=False):
+    """bf16 q/k/v (as views of one fused (B, L, 3, H, dk) buffer when
+    ``fused``), pos and a key mask with lengths Lk, Lk // 2 and 1."""
+    if fused:
+        assert Lq == Lk
+        qkv = _randn(g, B, Lq, 3, H, dk)
+        q, k, v = (qkv[:, :, t].transpose(1, 2) for t in range(3))
+    else:
+        q = _randn(g, B, H, Lq, dk)
+        k, v = (_randn(g, B, H, Lk, dk) for _ in range(2))
+    pos = torch.randn((H, Lq, Lk), generator=g, device="cuda") * 0.5
+    lens = torch.tensor([Lk, max(Lk // 2, 1), 1][:B], device="cuda")
+    km = torch.where(torch.arange(Lk, device="cuda")[None] < lens[:, None],
+                     0.0, flash.NEG_INF).float()
+    return q, k, v, pos, km
+
+
+def _assert_attention_close(got, ref):
+    """The tolerances of test_attention_matches_plain."""
+    (out, m, l), (rout, rm, rl) = got, ref
+    tol = 2e-2 + (2.0**-8 * rout.float().abs().max().item()
+                  if out.dtype == torch.bfloat16 else 0.0)
+    assert (out.float() - rout.float()).abs().max().item() <= tol
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() / rl).max().item() <= 1e-3
+
+
+# one key tile and a partial one, a full 64-row tile plus one row, the
+# refresh and serving lengths (ragged query tiles), the chunked length
+@pytest.mark.parametrize("L", [1, 60, 65, 160, 188, 200, 512])
+def test_attention_lengths(cuda, L):
+    args = _attention_inputs(_own_generator(L), 3, 2, L, L, 64)
+    before = flash.flash_attention_forward.launches
+    got = flash.flash_attention_forward(*args, torch.float32)
+    ref = flash.flash_attention_forward_plain(*args, torch.float32)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_forward.launches == before + 1
+    _assert_attention_close(got, ref)
+
+
+# Lk 33: pos rows of 132 bytes, not 16-byte aligned (read a float at a
+# time); Lq != Lk both ways
+@pytest.mark.parametrize("Lq,Lk", [(33, 33), (100, 33), (20, 33), (200, 70)])
+def test_attention_unaligned_pos_and_unequal_lengths(cuda, Lq, Lk):
+    args = _attention_inputs(_own_generator(Lq + Lk), 3, 2, Lq, Lk, 64)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = flash.flash_attention_forward(*args, out_dtype)
+        ref = flash.flash_attention_forward_plain(*args, out_dtype)
+        torch.cuda.synchronize()
+        _assert_attention_close(got, ref)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,L", [(128, 130), (64, 188)])
+def test_attention_fused_views_transposed_out_and_repeats(cuda, out_dtype,
+                                                          dk, L):
+    """q/k/v as views into one fused (B, L, 3, H, dk) buffer (K3's layout),
+    the output written into a transposed view of a (B, L, H, dk) buffer,
+    dk 64 and 128; two runs give the same bits, and nothing outside the
+    view is written."""
+    B, H = 3, 3
+    q, k, v, pos, km = _attention_inputs(_own_generator(dk + L), B, H, L, L,
+                                         dk, fused=True)
+    runs = []
+    for _ in range(2):
+        buf = torch.full((B, L, H + 1, dk), 7.0, dtype=out_dtype,
+                         device="cuda")
+        view = buf[:, :, :H].transpose(1, 2)
+        out, m, l = flash.flash_attention_forward(q, k, v, pos, km, out=view)
+        assert out.data_ptr() == view.data_ptr()
+        runs.append((buf, m, l))
+    ref = flash.flash_attention_forward_plain(q, k, v, pos, km, out_dtype)
+    torch.cuda.synchronize()
+    (buf, m, l), (buf2, m2, l2) = runs
+    assert torch.equal(buf, buf2) and torch.equal(m, m2) and \
+        torch.equal(l, l2)
+    assert bool((buf[:, :, H] == 7.0).all())
+    _assert_attention_close((buf[:, :, :H].transpose(1, 2), m, l), ref)
+
+
 def test_attention_raises_on_what_it_cannot_take(cuda):
     q = _randn(cuda, 1, 1, 64, 32)
     pos = torch.zeros((1, 64, 64), device="cuda")
@@ -483,6 +570,60 @@ def test_mips_topk_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiple of block_n"):
         mips.mips_topk_pallas(q, torch.zeros((1000, 32), device="cuda"), 4,
                               block_n=256)
+
+
+def test_k6_at_the_online_shape(cuda):
+    """K6 at the online step's call (16 queries, 16,384 int8 rows of 768,
+    k 65, block 4096, k' 32; unit rows as the encoder makes them) against
+    its plain version: values within the fp32 summation bound, indices
+    equal but for near-tie swaps, two runs bitwise equal, one launch."""
+    B, N, D, k = 16, 16384, 768, 65
+    g = _own_generator(1)
+    q = torch.nn.functional.normalize(
+        torch.randn((B, D), generator=g, device="cuda"), dim=1)
+    index = mips.quantize_embeddings(torch.nn.functional.normalize(
+        torch.randn((N, D), generator=g, device="cuda"), dim=1))
+    fn = mips.mips_topk_pallas_quantized
+    before = fn.launches
+    v, i = fn(q, *index, k, block_n=4096, k_per_block=32)
+    again = fn(q, *index, k, block_n=4096, k_per_block=32)
+    rv, ri = mips.mips_topk_pallas_quantized_plain(q, *index, k,
+                                                   block_n=4096,
+                                                   k_per_block=32)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(v, again[0]) and torch.equal(i, again[1])
+    tol = D * 2.0**-23 * 1.01  # unit rows: chip_smoke.py's mips_tol
+    assert (v - rv).abs().max().item() <= tol
+    rows, cols = (i != ri).nonzero(as_tuple=True)
+    if len(rows):
+        s = mips.block_scores(q, *(t[i[rows, cols]] for t in index))
+        s = s[rows, torch.arange(len(rows), device=s.device)]
+        assert (s - rv[rows, cols]).abs().max().item() <= tol
+    assert len(rows) <= 0.01 * i.numel()
+
+
+def test_k6_tied_zero_rows_lowest_index_first(cuda):
+    """300 all-zero int8 rows inside one 4096-row block score exactly 0,
+    more than its k' = 32 places; with every other score negative, the
+    block's candidates are its 32 lowest zero rows, as the plain version
+    takes them."""
+    B, N, D, k = 4, 8192, 128, 40
+    # positive queries and negative docs: every nonzero row scores below 0
+    g = _own_generator(2)
+    q = torch.rand((B, D), generator=g, device="cuda") + 0.1
+    docs = -torch.rand((N, D), generator=g, device="cuda") - 0.1
+    docs[1000:1300] = 0.0
+    index = mips.quantize_embeddings(docs)
+    v, i = mips.mips_topk_pallas_quantized(q, *index, k, block_n=4096,
+                                           k_per_block=32)
+    rv, ri = mips.mips_topk_pallas_quantized_plain(q, *index, k,
+                                                   block_n=4096,
+                                                   k_per_block=32)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri)
+    assert i[:, :32].tolist() == [list(range(1000, 1032))] * B
+    assert bool((v[:, :32] == 0).all())
 
 
 @pytest.mark.parametrize("rows,k6", [(4096, True), (3000, False)])

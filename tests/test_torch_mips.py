@@ -289,3 +289,40 @@ def test_set_segments_cover_the_rows(B, N, block_n, k, kpb):
     else:
         assert kk == k and seg >= k and (seg % 4 == 0 or seg == N)
         assert B * nseg <= 2 * mips.SM_COUNT + B
+
+
+# ---------------------------------------------------------------------------
+# K6's route on the card, host side: the int8 docs go through the score +
+# set-selection kernels with the blocks as segments
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,N,block_n,k,kpb", [
+    (16, 16_384, 4096, 65, 32), (16, 8_806_400, 4096, 129, 32),
+    (B, N, BLOCK, K, 5),
+])
+def test_int8_segment_plan_is_the_blocks(B, N, block_n, k, kpb):
+    """k' < k: one segment per block, k' keys each (the online step's and
+    the MS MARCO-scale shapes, and this file's)."""
+    assert mips.set_segments(B, N, block_n, k, kpb) == (block_n,
+                                                         N // block_n, kpb)
+
+
+def test_int8_set_merge_matches_pallas():
+    """Each block's top-k' taken as an unordered set of packed keys (what
+    the selection kernel writes), from the plain per-block selection, then
+    the packed-key merge: the result of JAX's mips_topk_pallas_quantized
+    (interpret mode), values and indices."""
+    q, _, _ = _data()
+    jv, ji, vals, scales = _jax_k6(5)
+    s = mips.block_scores(torch.from_numpy(q), torch.from_numpy(vals),
+                          torch.from_numpy(scales))
+    nb = N // BLOCK
+    v, pos = mips.topk_stable(s.view(B, nb, BLOCK), 5)
+    idx = pos + torch.arange(nb)[None, :, None] * BLOCK
+    keys = mips.pack_keys(v, idx)
+    perm = torch.from_numpy(np.random.default_rng(2).permuted(
+        np.broadcast_to(np.arange(5), keys.shape), axis=2).copy())
+    keys = torch.gather(keys, 2, perm).reshape(B, nb * 5)
+    tv, ti = mips._merge_keys(keys, K)
+    _assert_same((tv.numpy(), ti.numpy()), (jv, ji))

@@ -18,6 +18,9 @@
 // through the runtime's driver entry point so that the library needs no
 // -lcuda, and passed to the kernels as __grid_constant__ parameters.
 //
+// Also the attention kernels' tensor maps (q/k/v/g as 4-D maps bounded per
+// dimension, pos as 32 x 64 fp32 boxes) and their 64-row tile loads.
+//
 // Replaces no TPU kernel by itself: its users port the projections of
 // _v3_fwd_kernel (pacednegatives_tpu/ops/flash_v3.py:94-147, bound here by
 // the tensor cores) and the scores of _mips_block_kernel (ops/mips.py:
@@ -473,6 +476,58 @@ inline int make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 (batch, head, row, dk) tensor addressed through (batch, head, row)
+// strides in elements, dk contiguous (q, k, v or g of the attention
+// kernels), as a 4-D map of 64 x 64 boxes with the rows and heads
+// dimensions in ascending stride order; *rows_inner says which comes first.
+inline int qkv_map(CUtensorMap* map, const void* base, int dk, int L, int H,
+                   int B, long long sb, long long sh, long long sl,
+                   int* rows_inner) {
+  const bool ri = sl <= sh;
+  *rows_inner = ri;
+  const uint64_t dims[4] = {static_cast<uint64_t>(dk),
+                            static_cast<uint64_t>(ri ? L : H),
+                            static_cast<uint64_t>(ri ? H : L),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(ri ? sl : sh) * 2,
+                               static_cast<uint64_t>(ri ? sh : sl) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, ri ? 64u : 1u, ri ? 1u : 64u, 1};
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                     strides, box);
+}
+
+// The (H, Lq, Lk) fp32 position bias as a (Lk, Lq, H) map of 32 x 64 boxes
+// (a 64 x 64 tile is two boxes, 8 KB apart). Its rows must be 16-byte
+// multiples: returns -1 (no map) where they are not, else 0 or an error.
+inline int pos_map(CUtensorMap* map, const void* pos, int H, int Lq, int Lk) {
+  if (Lk % 4 != 0 || reinterpret_cast<uintptr_t>(pos) % 16 != 0) return -1;
+  const uint64_t row = static_cast<uint64_t>(Lk) * 4;
+  const uint64_t dims[4] = {static_cast<uint64_t>(Lk),
+                            static_cast<uint64_t>(Lq),
+                            static_cast<uint64_t>(H), 1};
+  const uint64_t strides[3] = {row, row * Lq, row * Lq * H};
+  const uint32_t box[4] = {32, 64, 1, 1};
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, pos, dims, strides,
+                     box);
+}
+
+// One 64-row tile of a qkv_map tensor: DK / 64 boxes of 64 x 64 (8 KB
+// each) at `dst`, completing on `bar`.
+template <int DK>
+__device__ __forceinline__ void load_rows(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          bool rows_inner, uint64_t* bar,
+                                          int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < DK / 64; ++c) {
+    if (rows_inner)
+      tma_load_4d(dst + c * 8192, map, bar, 64 * c, row, h, b);
+    else
+      tma_load_4d(dst + c * 8192, map, bar, 64 * c, h, row, b);
+  }
 }
 
 // Streaming multiprocessors of the current device (the persistent grids).

@@ -91,21 +91,6 @@ struct Cfg {
   static constexpr int MIN_BLOCKS = DK == 64 && POS_TMA ? 3 : 2;
 };
 
-// One 64-row tile of q, k or v: DK / 64 boxes of 64 x 64 (8 KB each).
-template <int DK>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const CUtensorMap* map,
-                                          bool rows_inner, uint64_t* bar,
-                                          int row, int h, int b) {
-#pragma unroll
-  for (int c = 0; c < DK / 64; ++c) {
-    if (rows_inner)
-      hopper::tma_load_4d(dst + c * 8192, map, bar, 64 * c, row, h, b);
-    else
-      hopper::tma_load_4d(dst + c * 8192, map, bar, 64 * c, h, row, b);
-  }
-}
-
 template <int DK>
 __device__ __forceinline__ void pv_wgmma(float (&o)[DK / 2],
                                          const uint32_t (&a)[4],
@@ -204,16 +189,17 @@ __global__ void __launch_bounds__(THREADS, (Cfg<DK, POS_TMA>::MIN_BLOCKS))
         // the next item's Q as soon as the last one's final S is done
         hopper::mbar_wait(qempty, qphase ^ 1);
         hopper::mbar_expect_tx(qfull, C::TILE);
-        load_tile<DK>(sQ, &map_q, q_rows_inner, qfull, x.q0, x.h, x.b);
+        hopper::load_rows<DK>(sQ, &map_q, q_rows_inner, qfull, x.q0, x.h,
+                              x.b);
         qphase ^= 1;
         for (int i = 0; i < ntiles; ++i) {
           hopper::mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = sKV + stage * C::STAGE;
           hopper::mbar_expect_tx(&full[stage], C::STAGE);
-          load_tile<DK>(st, &map_k, kv_rows_inner, &full[stage], i * BKV,
-                        x.h, x.b);
-          load_tile<DK>(st + C::TILE, &map_v, kv_rows_inner, &full[stage],
-                        i * BKV, x.h, x.b);
+          hopper::load_rows<DK>(st, &map_k, kv_rows_inner, &full[stage],
+                                i * BKV, x.h, x.b);
+          hopper::load_rows<DK>(st + C::TILE, &map_v, kv_rows_inner,
+                                &full[stage], i * BKV, x.h, x.b);
           if (POS_TMA) {
             for (int c = 0; c < 2; ++c)
               hopper::tma_load_4d(st + 2 * C::TILE + c * 8192, &map_pos,
@@ -437,25 +423,6 @@ __global__ void __launch_bounds__(THREADS, (Cfg<DK, POS_TMA>::MIN_BLOCKS))
   }
 }
 
-// q, k or v (bf16, (batch, head, row) strides in elements, dk contiguous)
-// as a 4-D tensor map with the rows and heads dimensions in ascending
-// stride order; *rows_inner says which comes first.
-int qkv_map(CUtensorMap* map, const void* base, int dk, int L, int H, int B,
-            long long sb, long long sh, long long sl, int* rows_inner) {
-  const bool ri = sl <= sh;
-  *rows_inner = ri;
-  const uint64_t dims[4] = {static_cast<uint64_t>(dk),
-                            static_cast<uint64_t>(ri ? L : H),
-                            static_cast<uint64_t>(ri ? H : L),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(ri ? sl : sh) * 2,
-                               static_cast<uint64_t>(ri ? sh : sl) * 2,
-                               static_cast<uint64_t>(sb) * 2};
-  const uint32_t box[4] = {64, ri ? 64u : 1u, ri ? 1u : 64u, 1};
-  return hopper::make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
-                             strides, box);
-}
-
 template <int DK, bool OUT_F32, bool POS_TMA>
 int launch_as(const CUtensorMap& map_q, const CUtensorMap& map_k,
               const CUtensorMap& map_v, const CUtensorMap& map_pos, int q_ri,
@@ -495,28 +462,22 @@ int launch(const void* q, const void* k, const void* v, long long q_sb,
            int B, int H, int Lq, int Lk, int device, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   int q_ri = 1, kv_ri = 1;
-  int rc = qkv_map(&map_q, q, DK, Lq, H, B, q_sb, q_sh, q_sl, &q_ri);
-  if (!rc) rc = qkv_map(&map_k, k, DK, Lk, H, B, kv_sb, kv_sh, kv_sl, &kv_ri);
-  if (!rc) rc = qkv_map(&map_v, v, DK, Lk, H, B, kv_sb, kv_sh, kv_sl, &kv_ri);
+  int rc = hopper::qkv_map(&map_q, q, DK, Lq, H, B, q_sb, q_sh, q_sl, &q_ri);
+  if (!rc)
+    rc = hopper::qkv_map(&map_k, k, DK, Lk, H, B, kv_sb, kv_sh, kv_sl, &kv_ri);
+  if (!rc)
+    rc = hopper::qkv_map(&map_v, v, DK, Lk, H, B, kv_sb, kv_sh, kv_sl, &kv_ri);
   if (rc) return rc;
-  // pos as a (Lk, Lq, H) map of 32 x 64 boxes: its rows must be 16-byte
-  // multiples (TMA); other lengths read pos from global memory
-  if (Lk % 4 == 0 && reinterpret_cast<uintptr_t>(pos) % 16 == 0) {
-    CUtensorMap map_pos;
-    const uint64_t row = static_cast<uint64_t>(Lk) * 4;
-    const uint64_t dims[4] = {static_cast<uint64_t>(Lk),
-                              static_cast<uint64_t>(Lq),
-                              static_cast<uint64_t>(H), 1};
-    const uint64_t strides[3] = {row, row * Lq, row * Lq * H};
-    const uint32_t box[4] = {32, 64, 1, 1};
-    rc = hopper::make_map_4d(&map_pos, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, pos,
-                             dims, strides, box);
-    if (rc) return rc;
+  // pos as 32 x 64 boxes where its rows are 16-byte multiples (TMA); other
+  // lengths read pos from global memory
+  CUtensorMap map_pos;
+  rc = hopper::pos_map(&map_pos, pos, H, Lq, Lk);
+  if (rc > 0) return rc;
+  if (rc == 0)
     return launch_as<DK, OUT_F32, true>(map_q, map_k, map_v, map_pos, q_ri,
                                         kv_ri, pos, key_mask, out, o_sb, o_sh,
                                         o_sl, m, l, B, H, Lq, Lk, device,
                                         stream);
-  }
   return launch_as<DK, OUT_F32, false>(map_q, map_k, map_v, map_q, q_ri, kv_ri,
                                        pos, key_mask, out, o_sb, o_sh, o_sl,
                                        m, l, B, H, Lq, Lk, device, stream);

@@ -26,8 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu",
-           "mips_topk.cu")
-HEADERS = ("hopper_pipeline.cuh",)
+           "t5_attention_bwd_fp32.cu", "mips_topk.cu")
+HEADERS = ("hopper_pipeline.cuh", "t5_attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -57,11 +57,11 @@ _SIGNATURES = {
         _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # q, k, v, q strides, kv strides, g, g strides, pos, key_mask, m, l,
-    # dcap, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk, dk, rows_per_group,
-    # fp32_operands, device, stream
+    # dcap, g16, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk, dk,
+    # rows_per_group, fp32_operands, device, stream
     "pnt_t5_attention_core_bwd": (
         _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # q, q_hi, q_lo, docs, scales, scores, cand, B, N, D, seg_len, nseg,

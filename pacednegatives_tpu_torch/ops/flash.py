@@ -12,17 +12,18 @@ Backward of the fused block (``attention_backward``): from (m, l) and the
 output cotangent g, the recomputed out, dq, dk, dv and dpos = sum over the
 batch of ds, with the numerics of ``_v3_bwd_kernel``
 (pacednegatives_tpu/ops/flash_v3.py:196-268), in
-``csrc/t5_attention_bwd.cu``. It is the core of the fused block's backward
-(K4); q/k/v/g and the outputs are strided (B, H, L, dk) views.
+``csrc/t5_attention_bwd.cu`` (a TMA-fed wgmma dq pass and dk/dv pass). It
+is the core of the fused block's backward (K4); q/k/v/g and the outputs are
+strided (B, H, L, dk) views.
 
 Backward of the chunked path's kernel route (``flash_attention_backward``,
 K2a, and ``flash_attention_backward_v2``, K2b; ops/flash.py:316, 599): from
 (m, l), delta = sum g * out (``dcap``, given) and the fp32 cotangent g, the
-fp32 dq, dk, dv and dpos. K2a multiplies fp32 operands; K2b rounds p, g and
-ds to q's dtype as the products' operands. ``flash_v2_eligible`` chooses
-between them as the JAX package does. Both run in
-``csrc/t5_attention_bwd.cu``, K4's source, through its second entry point:
-they share its tiling, its dk/dv kernel and its dpos reduction.
+fp32 dq, dk, dv and dpos. K2a multiplies fp32 operands
+(``csrc/t5_attention_bwd_fp32.cu``); K2b rounds p, g and ds to q's dtype as
+the products' operands and runs K4's kernels (``csrc/t5_attention_bwd.cu``).
+``flash_v2_eligible`` chooses between them as the JAX package does; both go
+through one C entry point and one dpos reduction.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors. Unlike the TPU kernels they take any
@@ -202,6 +203,78 @@ def attention_backward_plain(q, k, v, g, pos, key_mask, m, l, *, dq=None,
     return (*results, ds.sum(dim=0))
 
 
+def ds_error_bound(q, k, v, g, pos, key_mask, m, l, dcap=None):
+    """-> (bound, ds), both (B, H, Lq, Lk) float64: an elementwise bound on
+    the difference between two fp32 evaluations of the backward's
+    ds = p (dp - delta) that differ only in summation order and rounding,
+    and ds itself in float64. K4's numerics with ``dcap`` None (delta
+    recomputed from o), K2b's with ``dcap`` given (g rounded to bf16);
+    inputs as ``attention_backward``, on any device.
+
+    With u = 2^-24 and gamma(n) = 3 n u (an n-term fp32 sum in any order,
+    on both sides, the tensor cores' truncating accumulation included), it
+    is (p eps_p + TINY) |dp - delta| + p (eps_dp + eps_delta + 4u (|dp| +
+    |delta|)), from the plain version's own intermediates, where:
+    - eps_p = gamma(dk) |q| |k|^T + 4u (|q k^T| + |pos| + |m|) + 16u: s, its
+      bias sums, exp and 1 / l on both sides (the kernels take 2^x and 1/x
+      from the MUFU, ~2 ulps each);
+    - TINY = 2^-126: the kernels flush p below the smallest normal fp32 to
+      0, the plain versions keep it subnormal;
+    - eps_dp = gamma(dk) |g| |v|^T;
+    - K4 only: eps_delta = sum_c |g| ((flip + TINY + gamma(Lk) p) |v|) +
+      gamma(dk) sum_c |g o|, with flip = bf16(p (1 + eps_p)) -
+      bf16(p (1 - eps_p)) how far apart the two sides' bf16(p) in
+      o = bf16(p) v can round (one bf16 ulp where p lies that close to a
+      rounding boundary, else 0)."""
+    f64 = torch.float64
+    u = 2.0**-24
+    TINY = 2.0**-126  # p below it may be flushed to 0 (or subnormal)
+    dk = q.shape[-1]
+    Lk = k.shape[2]
+    qf, kf, vf = (t.to(f64) for t in (q, k, v))
+    gf = g.to(torch.bfloat16).to(f64)
+    mf = m.to(f64)[..., None]
+    qk = torch.matmul(qf, kf.transpose(-1, -2))
+    s = qk + pos[None].to(f64) + key_mask[:, None, None, :].to(f64)
+    p = torch.exp(s - mf) / l.to(f64)[..., None]
+    eps_p = (_gamma(dk) * torch.matmul(qf.abs(), kf.abs().transpose(-1, -2))
+             + 4 * u * (qk.abs() + pos[None].to(f64).abs() + mf.abs())
+             + 16 * u)
+    del qk, s
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    eps_dp = _gamma(dk) * torch.matmul(gf.abs(), vf.abs().transpose(-1, -2))
+    if dcap is None:
+        o = torch.matmul(p.to(v.dtype).to(f64), vf)
+        delta = (gf * o).sum(dim=-1)
+        # what bf16(p) can be on either side: p within eps_p (and TINY) of p
+        flip = ((p * (1 + eps_p)).to(v.dtype).to(f64)
+                - (p * (1 - eps_p)).to(v.dtype).to(f64))
+        eps_delta = ((gf.abs() * torch.matmul(flip + TINY + _gamma(Lk) * p,
+                                              vf.abs())).sum(dim=-1)
+                     + _gamma(dk) * (gf * o).abs().sum(dim=-1))[..., None]
+        del o, flip
+    else:
+        delta, eps_delta = dcap.to(f64), 0.0
+    delta = delta[..., None]
+    bound = ((p * eps_p + TINY) * (dp - delta).abs()
+             + p * (eps_dp + eps_delta + 4 * u * (dp.abs() + delta.abs())))
+    return bound, p * (dp - delta)
+
+
+def _gamma(n: int) -> float:
+    return 3.0 * n * 2.0**-24
+
+
+def dpos_error_bound(q, k, v, g, pos, key_mask, m, l, dcap=None):
+    """Elementwise bound (H, Lq, Lk, float64) on the difference between two
+    fp32 evaluations of dpos = sum_b ds (the kernel against its plain
+    version, or the plain version against exact arithmetic):
+    ``ds_error_bound`` summed over the batch, plus the batch sum's own
+    gamma(B) sum_b |ds|. Arguments as ``ds_error_bound``."""
+    bound, ds = ds_error_bound(q, k, v, g, pos, key_mask, m, l, dcap)
+    return bound.sum(dim=0) + _gamma(q.shape[0]) * ds.abs().sum(dim=0)
+
+
 def _check_out(t: torch.Tensor, name: str, shape, dev) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"attention kernel: {name} must be bfloat16, got {t.dtype}")
@@ -226,6 +299,17 @@ def _check_stats(t: torch.Tensor, name: str, shape) -> None:
 # batch rows per dpos partial: each group of rows adds its ds into one
 # (H, Lq, Lk) fp32 slab in a fixed order, and a last pass sums the slabs
 DPOS_ROWS_PER_GROUP = 4
+
+
+def _dpos_buffers(B, H, Lq, Lk, dev):
+    """dpos (H, Lq, Lk) and the group partials' scratch (dpos itself when
+    the batch is one group: the kernels then write it directly)."""
+    dpos = torch.empty((H, Lq, Lk), dtype=torch.float32, device=dev)
+    groups = -(-B // DPOS_ROWS_PER_GROUP)
+    if groups == 1:
+        return dpos, dpos
+    return dpos, torch.empty((groups, H, Lq, Lk), dtype=torch.float32,
+                             device=dev)
 
 
 def attention_backward(q, k, v, g, pos, key_mask, m, l, *, dq=None, dk=None,
@@ -280,11 +364,8 @@ def attention_backward(q, k, v, g, pos, key_mask, m, l, *, dq=None, dk=None,
         _check_out(t, name, (B, H, L, d), dev)
     if dk.stride() != dv.stride():
         raise ValueError("attention kernel: dk and dv must share strides")
-    groups = -(-B // DPOS_ROWS_PER_GROUP)
     delta = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
-    dpos_part = torch.empty((groups, H, Lq, Lk), dtype=torch.float32,
-                            device=dev)
-    dpos = torch.empty((H, Lq, Lk), dtype=torch.float32, device=dev)
+    dpos, dpos_part = _dpos_buffers(B, H, Lq, Lk, dev)
     rc = kernels.library().pnt_t5_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3],
@@ -397,13 +478,16 @@ def _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, fp32_operands):
         _check_stats(t, name, (B, H, Lq))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     dq, dk, dv = new(B, H, Lq, d), new(B, H, Lk, d), new(B, H, Lk, d)
-    dpos_part = new(-(-B // DPOS_ROWS_PER_GROUP), H, Lq, Lk)
-    dpos = new(H, Lq, Lk)
+    dpos, dpos_part = _dpos_buffers(B, H, Lq, Lk, dev)
+    # K2b: the kernels round g to bf16 into this scratch (flash.py:555)
+    g16 = None if fp32_operands else torch.empty(
+        (B, H, Lq, d), dtype=torch.bfloat16, device=dev)
     rc = kernels.library().pnt_t5_attention_core_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], g.data_ptr(), *g.stride()[:3],
         pos.data_ptr(), key_mask.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dcap.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dcap.data_ptr(), None if g16 is None else g16.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dpos_part.data_ptr(), dpos.data_ptr(),
         B, H, Lq, Lk, d, DPOS_ROWS_PER_GROUP, int(fp32_operands),
         dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -421,8 +505,7 @@ def flash_attention_backward(q, k, v, pos, key_mask, m, l, dcap, g):
     (B, Lk) additive fp32; m, l (B, H, Lq) the forward's statistics; dcap
     (B, H, Lq) = sum g * out; g (B, H, Lq, dk) fp32 the cotangent of the
     attention output. CPU tensors: ``flash_attention_backward_plain``. CUDA
-    tensors: ``csrc/t5_attention_bwd.cu`` with fp32 operands, which
-    takes bf16 q/k/v of dk 64 or 128 (head dimension contiguous, other
+    tensors: ``csrc/t5_attention_bwd_fp32.cu``, which takes bf16 q/k/v of dk 64 or 128 (head dimension contiguous, other
     strides multiples of 8, k and v sharing strides), fp32 g (head
     dimension contiguous, other strides multiples of 4) and contiguous fp32
     pos / key_mask / m / l / dcap. dpos is summed in a fixed order: two runs
@@ -441,8 +524,9 @@ flash_attention_backward.launches = 0  # kernel launches; CPU route not counted
 def flash_attention_backward_v2(q, k, v, pos, key_mask, m, l, dcap, g):
     """K2b: as ``flash_attention_backward`` with bf16(p), bf16(g) and
     bf16(ds) as the products' operands. CPU tensors:
-    ``flash_attention_backward_v2_plain``; CUDA tensors: the same kernel
-    family with bf16 WMMA products and the same input rules."""
+    ``flash_attention_backward_v2_plain``; CUDA tensors: K4's TMA + wgmma
+    kernels with fp32 g rounded to bf16 on the card, and the same input
+    rules."""
     if q.device.type == "cpu":
         return flash_attention_backward_v2_plain(q, k, v, pos, key_mask, m,
                                                  l, dcap, g)

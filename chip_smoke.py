@@ -16,8 +16,11 @@ Phases, one JSON line each (any failure exits non-zero):
              the fused block's
              backward (K4) also at L 512 / dk 128; the chunked path's
              backward kernels K2b (at its L 512 training shape and at
-             dk 128) and K2a (at its L 768 training shape, and at
-             Lq 256 / Lk 128), and K1 at the serving, refresh and L 512 /
+             dk 128) and K2a (at its L 768 training shape, at Lq 256 /
+             Lk 128 and at dk 128; beside the memory-efficient SDPA
+             backward on fp32 operands; and bit for bit on inputs where
+             its three-term split is exact), and K1 at the serving,
+             refresh and L 512 /
              dk 128 shapes and with fp32 output at both training shapes
              (SDPA beside it, and its host cost per call); every dpos and
              every K1 output must be bitwise equal across two runs; K2b
@@ -42,7 +45,9 @@ Phases, one JSON line each (any failure exits non-zero):
              residual) through ``cli.train.main``: K1 and K2b launched
              exactly 12 x 8 times a step and K2a never, finite losses,
              every weight moved; step 1 against the plain chunked route;
-             then two steps at L 768, where K2a takes the backward;
+             then two steps at L 768, where K2a takes the backward (K2a
+             12 times a step, K2b never), and step 1 at L 768 against the
+             plain chunked route;
 7. dense   - the MIPS top-k kernels against their plain versions at the
              dense paths' scales (K6 over an 8.8M-row int8 index, K5 over a
              1M-row fp32 index at k' = 1000, bf16 docs, k' = k against an
@@ -180,6 +185,28 @@ STEP512_GRAD_REL_L2_MEDIAN = 0.075  # over the leaves
 # in chunks of 256, so none are padded and the kernels see Lk = 768.
 B768, N768, STEPS768 = 2, 3, 2
 ROWS768 = B768 * (1 + N768)  # one microbatch: the kernels' batch
+# Step 1 at L 768, kernel route (K1 + K2a) against the plain chunked route
+# (256-key chunks), same weights and batch, both bf16 with an fp32 carry.
+# K2a keeps fp32 operands where the plain route's backward rounds p, g and
+# ds to bf16 (a few bf16 ulps on the attention gradients), and K1 rounds
+# the unnormalised p against the running max of 64-key tiles. A CPU
+# rehearsal at t5-base width modelled both
+# (scripts/torch_attention_bwd_step_rehearsal.py: K1 as the plain route at
+# 64-key chunks, K2a as its plain version), at 8 rows: losses equal,
+# per-leaf ||on - off|| / ||off|| of median 2.7e-5 and max 0.0082 (encoder
+# block 0's q; 0.0087 at 2 rows). On the card the forwards also sum in
+# other orders (K1's tiles against the plain route's matmuls), so bf16
+# flips spread through 12 + 12 layers as at L 512, whose gradient
+# tolerances cover that (its rehearsal: median 0.025, max 0.054): the same
+# ones here, with K2a's share (0.0082) well inside. The loss is the
+# forward's alone and sums 8 rows where L 512's sums 128: a first run on
+# the card read 5.0e-4 (L 512: 1.1e-4), so 10x that. A routing or gradient
+# fault (a lost dpos, a wrong head, a dropped key chunk, a wrong mask) is
+# O(1) on the leaves it touches; a K2a arithmetic fault smaller than that
+# is phase 3's to catch.
+STEP768_LOSS_RTOL = 5e-3
+STEP768_GRAD_REL_L2 = 0.15  # per leaf
+STEP768_GRAD_REL_L2_MEDIAN = 0.075  # over the leaves
 # Tolerances of the chunked path's backward kernels against their plain
 # versions on the card (outputs fp32 on both sides, never rounded):
 # K2b rounds p, g and ds to bf16 on both sides, and a value whose fp32 sums
@@ -187,14 +214,20 @@ ROWS768 = B768 * (1 + N768)  # one microbatch: the kernels' batch
 # apart, so one bf16 ulp of each output's largest magnitude bounds dq, dk
 # and dv; dpos sums the unrounded fp32 ds in another order: within the
 # elementwise bound of ``dpos_error_bound`` (as K4's core). K2a multiplies
-# fp32 operands on both sides (TF32 off), so only the summation order
-# differs: 1e-4 of the largest, dpos included.
+# fp32 operands on both sides: the plain version in fp32 (TF32 off), the
+# kernel as sums of products of three bf16 terms of each operand, which
+# hold it exactly, but for dV's dropped cross terms (<= 2^-23 of sum p|g|;
+# t5_attention_bwd_fp32.cu); so the two differ by fp32 summation order (the
+# tensor cores' accumulation truncates) and p's MUFU exp and 1 / l: 1e-4
+# of the largest, dpos included.
 K2B_TOL = BF16_ULP_REL
 K2A_TOL, K2A_DPOS_TOL = 1e-4, 1e-4
 # The least time the card could take (H100 SXM data sheet): bytes over
 # 3.35 TB/s, operations over the peak of their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
 # Phase 7. K6 at the JAX bench's 4096-aligned MS MARCO point (bench.py:
 # 581-586) with the online pool of 128 + 1 and its tiling (bench.py:635-638,
 # online.py:75-76): 6.8 GB of int8. K5 at the build_pools call of the
@@ -290,6 +323,70 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
     if by_bytes >= by_ops:
         return {"bound_ms": by_bytes, "bound_by": "bytes"}
     return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+# L x L x dk products of the chunked path's backward function, each counted
+# once, on the tensor cores' bf16 peak: K2b's five (s, dp, dv, dq, dk) on
+# bf16 operands; K2a's five with each fp32 operand held in three bf16
+# terms (csrc/t5_attention_bwd_fp32.cu): S 1 (q and k are bf16), dP 3,
+# dV 6 (the pairs i + j <= 2), dQ 3, dK 3. What the kernels recompute
+# (S and dP in both passes; K2a's S^T and dP^T once for each 64-column
+# half at dk 128) is their cost, not the function's: 7 + 13 (7 + 17)
+# passes where K2a's function needs 16, 3 + 4 where K2b's needs 5.
+CORE_BWD_PRODUCTS = {"k2b": 5, "k2a": 16}
+
+
+def core_bwd_bytes(B: int, H: int, Lq: int, Lk: int, dk: int) -> int:
+    """K2b's and K2a's bytes: q, k, v (bf16), g, dcap, m, l, pos and the key
+    mask in, dq, dk, dv and dpos out (fp32), each once."""
+    return (B * H * (Lq + 2 * Lk) * dk * 2 + B * H * Lq * dk * 4
+            + 3 * B * H * Lq * 4 + 2 * H * Lq * Lk * 4 + B * Lk * 4
+            + B * H * (Lq + 2 * Lk) * dk * 4)
+
+
+def core_bwd_bound(kernel: str, B: int, H: int, Lq: int, Lk: int,
+                   dk: int) -> dict:
+    """K2b's or K2a's bound: its bytes, and its products as
+    ``CORE_BWD_PRODUCTS`` counts them."""
+    return bound(core_bwd_bytes(B, H, Lq, Lk, dk),
+                 CORE_BWD_PRODUCTS[kernel] * 2 * B * H * Lq * Lk * dk, "bf16")
+
+
+def k2a_exact_probe(B: int, H: int, Lq: int, Lk: int, dk: int,
+                    device: str, g: torch.Generator) -> tuple:
+    """K2a's arguments (q, k, v, pos, key_mask, m, l, dcap, g) on which
+    each of its products is exact in fp32 when every fp32 operand is held
+    in three bf16 terms, and is not when in two: so the kernel must equal
+    its plain version (and exact arithmetic) bit for bit. q has entries in
+    {-1, 0, 1}, the same in every batch row; k and v have one-hot rows (key
+    j at column j % dk); pos = -q k^T, m = 0, l = 1 and the key mask 0
+    (keys past 3 Lk / 4 masked in batch row 1): s = 0 and p = 1 (or 0).
+    g = +-(1 + n 2^-18), n < 2^18, on the query rows that are multiples of
+    16 (one row a 16-row wgmma step), 0 elsewhere; dcap = 0. Then ds = dP
+    = g at column j % dk, which has up to 19 significant bits: three bf16
+    terms hold it, two leave up to 2^-17. Every sum adds values that are
+    multiples of 2^-18 below 2^5 (dq: Lk / dk <= 12 copies; dk, dv: <= Lq /
+    16 rows; dpos: B rows), so every order of it is exact when Lq <= 256
+    and B <= 8. p's split is not probed (p = 1 has one term)."""
+    assert Lq <= 256 and B <= 8 and Lk <= 12 * dk
+    q1 = torch.randint(-1, 2, (1, H, Lq, dk), generator=g, device=device)
+    q = q1.expand(B, H, Lq, dk).to(torch.bfloat16).contiguous()
+    onehot = torch.nn.functional.one_hot(
+        torch.arange(Lk, device=device) % dk, dk).float()
+    k = onehot.expand(B, H, Lk, dk).to(torch.bfloat16).contiguous()
+    v = k.clone()
+    pos = -(q1[0].float() @ onehot.t()).contiguous()
+    key_mask = torch.zeros((B, Lk), device=device)
+    if B > 1:
+        key_mask[1, 3 * Lk // 4:] = NEG_INF
+    n = torch.randint(0, 2**18, (B, H, Lq, dk), generator=g, device=device)
+    sign = torch.randint(0, 2, (B, H, Lq, dk), generator=g,
+                         device=device) * 2 - 1
+    gv = sign * (1 + n.double() * 2.0**-18)
+    gv[:, :, torch.arange(Lq, device=device) % 16 != 0] = 0
+    zeros = torch.zeros((B, H, Lq), device=device)
+    return (q, k, v, pos, key_mask, zeros, zeros + 1, zeros.clone(),
+            gv.float().contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +578,10 @@ def phase_kernels() -> dict:
         "k2b_dk128": _check_core_bwd(g, "k2b", 4, 16, 512, 512, 128),
         "k2a_L768": _check_core_bwd(g, "k2a", ROWS768, 12, 768, 768, 64),
         "k2a_Lq256_Lk128": _check_core_bwd(g, "k2a", 4, 12, 256, 128, 64),
+        "k2a_dk128": _check_core_bwd(g, "k2a", 4, 16, 768, 768, 128),
+        # K2a on inputs where three bf16 terms make it exact and two do not
+        "k2a_exact_dk64": _check_k2a_exact(g, 5, 2, 70, 768, 64),
+        "k2a_exact_dk128": _check_k2a_exact(g, 5, 2, 70, 768, 128),
     }
 
     # The fused block (K3) at the slice shape, T5-initialised weights and
@@ -561,38 +662,51 @@ def _dpos_check(name: str, got, ref, args, dcap=None) -> float:
     return ratio
 
 
-def _sdpa_bwd_library(q, k, v, g, pos, km) -> dict:
-    """The yardstick of the attention backward kernels (K2b, K4's core):
-    one ``aten._scaled_dot_product_efficient_attention_backward`` call (dq,
-    dk, dv and the (B, H, Lq, Lk) gradient of the bias) plus the batch sum
-    of that gradient (dpos), on bf16 q/k/v/g and pos + key mask as one bf16
-    attn_bias (the op takes one dtype, so K2b's fp32 g is rounded); its
-    forward, for out and the logsumexp, runs outside the timing, and the
-    bias's rows are padded to 16 bytes, as SDPA pads them. Never called by
-    the port. {"library_ms": ms or None, "library_ms_back_to_back": ms or
-    None, "library_note": why None}."""
+def _sdpa_bwd_library(q, k, v, g, pos, km, dtype=torch.bfloat16,
+                      stats=None, ref=None) -> dict:
+    """The yardstick of the attention backward kernels: one
+    ``aten._scaled_dot_product_efficient_attention_backward`` call (dq, dk,
+    dv and the (B, H, Lq, Lk) gradient of the bias) plus the batch sum of
+    that gradient (dpos), on q/k/v/g in ``dtype`` and pos + key mask as one
+    attn_bias of that dtype (the op takes one dtype: bf16 for K2b and K4's
+    core, whose fp32 g is rounded; fp32 for K2a). out and the logsumexp come
+    from the op's forward, outside the timing, or with ``stats`` = (out, m,
+    l) from the kernels' forward (logsumexp = m + log l), so that the op
+    computes K2a's function on K2a's inputs. The bias's rows are padded to
+    16 bytes, as SDPA pads them. Never called by the port. {"library_ms":
+    ms or None, "library_ms_back_to_back": ms or None, "library_note": why
+    None}, and with ``ref`` (dq, dk, dv, dpos) "library_err_rel": max |op -
+    ref| / max |ref| of each."""
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
-    qc, kc, vc = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
-    gc = g.to(torch.bfloat16).contiguous()
-    bias = torch.empty((B, H, Lq, -(-Lk // 8) * 8), dtype=torch.bfloat16,
+    qc, kc, vc, gc = (t.to(dtype).contiguous() for t in (q, k, v, g))
+    bias = torch.empty((B, H, Lq, -(-Lk // 8) * 8), dtype=dtype,
                        device="cuda")[..., :Lk]
     bias.copy_(pos[None] + km[:, None, None, :])
     ops = torch.ops.aten
     try:
         out, lse, seed, offset = ops._scaled_dot_product_efficient_attention(
             qc, kc, vc, bias, True, 0.0, False, scale=1.0)
+        if stats is not None:
+            o, m, l = stats
+            out = o.to(dtype).contiguous()
+            lse = lse.clone()
+            lse[..., :Lq] = m + torch.log(l)
 
         def run():
             grads = ops._scaled_dot_product_efficient_attention_backward(
                 gc, qc, kc, vc, bias, out, lse, seed, offset, 0.0,
                 [True, True, True, True], False, scale=1.0)
-            return grads[3].sum(dim=0)
+            return (*grads[:3], grads[3].sum(dim=0))
 
-        run()
+        got = run()
+        err = {} if ref is None else {"library_err_rel": {
+            name: max_abs(a, b) / b.abs().max().item()
+            for name, a, b in zip(("dq", "dk", "dv", "dpos"), got, ref)}}
+        del got
         return {"library_ms": time_ms(run),
                 "library_ms_back_to_back": time_ms_back_to_back(run),
-                "library_note": None}
+                "library_note": None, **err}
     except RuntimeError as e:
         return {"library_ms": None, "library_ms_back_to_back": None,
                 "library_note": str(e).strip().splitlines()[0][:200]}
@@ -728,8 +842,22 @@ def _check_core_bwd(g, kernel, B, H, Lq, Lk, dk) -> dict:
     emit("kernels", check=f"{label}_bitwise_repeat", ok=bitwise)
     if not bitwise:
         raise AssertionError(f"{label}: two runs differ")
-    del got, again, ref
+    del got, again
+    # the yardstick: K2b's on bf16 operands from the op's own forward; K2a's
+    # on fp32 operands with K1's (out, m, l), K2a's own inputs
+    library = (_sdpa_bwd_library(q, k, v, gout, pos, km) if kernel == "k2b"
+               else _sdpa_bwd_library(q, k, v, gout, pos, km, torch.float32,
+                                      stats=(out, m, l), ref=ref))
+    del ref
     launch = lambda: fn(*args)
+    if kernel == "k2a":
+        # the deleted SIMT kernel's yardstick, for PERF.md: the five
+        # products as fp32 FMAs; not this kernel's bound, so on a line of
+        # its own and not in the kernels line
+        emit("kernels", info=f"{label}_simt_fp32_fma_bound",
+             simt_fp32_fma_bound_ms=bound(
+                 core_bwd_bytes(B, H, Lq, Lk, dk),
+                 5 * 2 * B * H * Lq * Lk * dk, "fp32")["bound_ms"])
     return {
         "shape": [B, H, Lq, Lk, dk],
         "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
@@ -737,18 +865,28 @@ def _check_core_bwd(g, kernel, B, H, Lq, Lk, dk) -> dict:
         "ms": time_ms(launch), "host_us": _host_us(launch),
         "ms_back_to_back": time_ms_back_to_back(launch),
         "plain_ms": time_ms(lambda: plain(*args)),
-        # K2a multiplies fp32 operands: no library call computes it
-        **(_sdpa_bwd_library(q, k, v, gout, pos, km) if kernel == "k2b"
-           else {"library_ms": None}),
-        # q, k, v (bf16), g, dcap, m, l, pos, key mask in; dq, dk, dv, dpos
-        # out (fp32); five products (s, dp, dv, dq, dk), bf16 operands for
-        # K2b and fp32 for K2a
-        **bound(B * H * (Lq + 2 * Lk) * dk * 2 + B * H * Lq * dk * 4
-                + 3 * B * H * Lq * 4 + 2 * H * Lq * Lk * 4 + B * Lk * 4
-                + B * H * (Lq + 2 * Lk) * dk * 4,
-                5 * 2 * B * H * Lq * Lk * dk,
-                "bf16" if kernel == "k2b" else "fp32"),
+        **library,
+        **core_bwd_bound(kernel, B, H, Lq, Lk, dk),
     }
+
+
+def _check_k2a_exact(g, B, H, Lq, Lk, dk) -> dict:
+    """K2a against its plain version on ``k2a_exact_probe``'s inputs, where
+    both compute the function exactly: every output equal bit for bit (a
+    kernel that held g or ds in two bf16 terms would miss by up to 2^-17 a
+    term). The random-input checks' 1e-4 of the largest cannot tell two
+    terms from three: there the sound kernel reads 2e-6 to 1e-5 of each
+    output's largest (fp32 summation order, the MUFU's exp and 1 / l), and
+    two terms would add 4-7e-6 (tests/test_torch_k2a_split.py's float64
+    emulation at its ragged shape)."""
+    label = f"k2a_exact_B{B}_H{H}_Lq{Lq}_Lk{Lk}_dk{dk}"
+    args = k2a_exact_probe(B, H, Lq, Lk, dk, "cuda", g)
+    ref = flash_attention_backward_plain(*args)
+    got = flash_attention_backward(*args)
+    errs = {name: check(f"{label}_{name}", max_abs(a, b), 0.0,
+                        largest=b.abs().max().item())["max_abs_err"]
+            for name, a, b in zip(("dq", "dk", "dv", "dpos"), got, ref)}
+    return {"shape": [B, H, Lq, Lk, dk], "errors": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -924,11 +1062,12 @@ K2A_PRESET = dict(
 )
 
 
-def _chunked_cfg(kernel: bool) -> t5.T5Config:
+def _chunked_cfg(kernel: bool, chunk: int = 512,
+                 residual: str = "bf16") -> t5.T5Config:
     return dataclasses.replace(
         t5.T5Config.base(), dtype=torch.bfloat16, fused_qkv=True,
-        attention_impl="chunked", attention_chunk=512, flash_kernel=kernel,
-        attn_residual_dtype="bf16")
+        attention_impl="chunked", attention_chunk=chunk, flash_kernel=kernel,
+        attn_residual_dtype=residual)
 
 
 COUNTED = {
@@ -1014,12 +1153,13 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict,
 
 
 def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
-             max_d: int, want_on: dict, tols: tuple, **step_kw) -> dict:
+             max_d: int, want_on: dict, tols: tuple, pairs: int = B_TRAIN,
+             n_neg: int = N_NEG_TRAIN, **step_kw) -> dict:
     """Step 1 with the kernels (``cfg_on``) against the plain route
-    (``cfg_off``) on the same weights and batch. The first update runs at
-    lr(0) = 0, so the AdamW first moment after it is 0.1 x the clipped
-    gradient: compared leaf by leaf as ||on - off|| / ||off||. The plain
-    route must launch no kernel."""
+    (``cfg_off``) on the same weights and batch (``pairs`` x (1 + ``n_neg``)
+    rows). The first update runs at lr(0) = 0, so the AdamW first moment
+    after it is 0.1 x the clipped gradient: compared leaf by leaf as
+    ||on - off|| / ||off||. The plain route must launch no kernel."""
     loss_tol, grad_tol, grad_median_tol = tols
     tok = HashTokenizer(vocab_size=32128)
     corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
@@ -1033,15 +1173,15 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
     ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=1,
                          total_steps=8, kind="lce", objective="weighted_ce",
                          optimizer="adamw", clamp=False,
-                         ce_scale=(1 + N_NEG_TRAIN) * float(np.log(32128)))
+                         ce_scale=(1 + n_neg) * float(np.log(32128)))
     batch = dc.lce_batch(torch.Generator(device="cuda").manual_seed(1),
-                         torch.arange(B_TRAIN, device="cuda"),
-                         torch.tensor(0.5, device="cuda"), N_NEG_TRAIN)
+                         torch.arange(pairs, device="cuda"),
+                         torch.tensor(0.5, device="cuda"), n_neg)
     runs = {}
     for on, cfg in ((True, cfg_on), (False, cfg_off)):
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
         step = make_train_step(cfg, ctrl, tx, loss="lce",
-                               n_neg_per_example=N_NEG_TRAIN, use_mean=False,
+                               n_neg_per_example=n_neg, use_mean=False,
                                rel_id=tok.true_id, nrel_id=tok.false_id,
                                **step_kw)
         before = _launches()
@@ -1110,10 +1250,18 @@ def phase_chunked(smi: str) -> dict:
                      (STEP512_LOSS_RTOL, STEP512_GRAD_REL_L2,
                       STEP512_GRAD_REL_L2_MEDIAN),
                      microbatches=MB512, grad_accum_dtype="bf16")
-    # L 768: K2a (the resident estimate fails the 48 MiB gate)
-    k2a = _train_run(smi, "chunked_768_k2a", K2A_PRESET,
-                     _per_step(attention=layers, core_bwd_k2a=layers))
-    return {"run": run, "step1": step1, "k2a_run": k2a}
+    # L 768: K2a (the resident estimate fails the 48 MiB gate), one
+    # microbatch: K1 and K2a once per encoder layer a step, K2b never
+    per_step768 = _per_step(attention=layers, core_bwd_k2a=layers)
+    k2a = _train_run(smi, "chunked_768_k2a", K2A_PRESET, per_step768)
+    step768 = _step_ab(
+        "step1_chunked_768_k2a_vs_plain",
+        _chunked_cfg(True, K2A_PRESET["attention_chunk"], "fp32"),
+        _chunked_cfg(False, K2A_PRESET["attention_chunk"], "fp32"),
+        K2A_PRESET["max_d_tokens"], per_step768,
+        (STEP768_LOSS_RTOL, STEP768_GRAD_REL_L2, STEP768_GRAD_REL_L2_MEDIAN),
+        pairs=B768, n_neg=N768, microbatches=1, grad_accum_dtype="fp32")
+    return {"run": run, "step1": step1, "k2a_run": k2a, "step768": step768}
 
 
 # ---------------------------------------------------------------------------
@@ -1382,7 +1530,8 @@ def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
             "launches": launches,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "library_note", "host_us",
+                                       "library_note", "library_err_rel",
+                                       "host_us",
                                        "ms_back_to_back",
                                        "library_ms_back_to_back",
                                        "shape", "kernel_ms", "merge_ms",
@@ -1434,11 +1583,12 @@ def main() -> int:
                "ops/flash.py:614", total["core_bwd_k2b"],
                k["core_bwd"]["k2b_train512"],
                dk128=k["core_bwd"]["k2b_dk128"]),
-        _entry("t5_attention_core_bwd_k2a", "t5_attention_bwd.cu",
+        _entry("t5_attention_core_bwd_k2a", "t5_attention_bwd_fp32.cu",
                "ops/flash.py:353", total["core_bwd_k2a"],
                k["core_bwd"]["k2a_L768"],
                also_replaces=["pacednegatives_tpu/ops/flash.py:384"],
-               Lq256_Lk128=k["core_bwd"]["k2a_Lq256_Lk128"]),
+               Lq256_Lk128=k["core_bwd"]["k2a_Lq256_Lk128"],
+               dk128=k["core_bwd"]["k2a_dk128"]),
         _entry("mips_topk", "mips_topk.cu", "ops/mips.py:112",
                total["mips_topk"], dk["k5_pools"],
                bf16=dk["k5_bf16"], exact=dk["k5_exact"]),
@@ -1461,7 +1611,10 @@ def main() -> int:
             "step1_grad_rel_l2_max": ch["step1"]["grad_rel_l2_max"],
             "step1_grad_rel_l2_median": ch["step1"]["grad_rel_l2_median"]},
         "train_chunked_768_k2a": {
-            "steps_per_s": ch["k2a_run"]["steps_per_s"]},
+            "steps_per_s": ch["k2a_run"]["steps_per_s"],
+            "step1_loss_rel_err": ch["step768"]["loss_rel_err"],
+            "step1_grad_rel_l2_max": ch["step768"]["grad_rel_l2_max"],
+            "step1_grad_rel_l2_median": ch["step768"]["grad_rel_l2_median"]},
         "train_online_int8": {
             "steps_per_s": dn["online"]["steps_per_s"],
             "refresh_seconds": dn["online"]["refresh_seconds"]},

@@ -57,12 +57,16 @@ _SIGNATURES = {
         _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # q, k, v, q strides, kv strides, g, g strides, pos, key_mask, m, l,
-    # dcap, g16, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk, dk,
+    # dcap, scratch, dq, dk, dv, dpos_part, dpos, B, H, Lq, Lk, dk,
     # rows_per_group, fp32_operands, device, stream
     "pnt_t5_attention_core_bwd": (
         _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # B, H, Lq, Lk, dk, fp32_operands, device, &bytes: its scratch bytes
+    "pnt_t5_attention_core_bwd_scratch": (
+        _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_LL),
     ),
     # q, q_hi, q_lo, docs, scales, scores, cand, B, N, D, seg_len, nseg,
     # kk, doc_type (0 fp32, 1 bf16, 2 int8), device, stream

@@ -19,11 +19,13 @@ strided (B, H, L, dk) views.
 Backward of the chunked path's kernel route (``flash_attention_backward``,
 K2a, and ``flash_attention_backward_v2``, K2b; ops/flash.py:316, 599): from
 (m, l), delta = sum g * out (``dcap``, given) and the fp32 cotangent g, the
-fp32 dq, dk, dv and dpos. K2a multiplies fp32 operands
-(``csrc/t5_attention_bwd_fp32.cu``); K2b rounds p, g and ds to q's dtype as
-the products' operands and runs K4's kernels (``csrc/t5_attention_bwd.cu``).
-``flash_v2_eligible`` chooses between them as the JAX package does; both go
-through one C entry point and one dpos reduction.
+fp32 dq, dk, dv and dpos. Both run K4's two passes (``csrc/
+t5_attention_bwd.cuh``) on the tensor cores. K2b rounds p, g and ds to q's
+dtype as the products' operands (``csrc/t5_attention_bwd.cu``). K2a
+multiplies fp32 operands: it splits g, p and ds each into three bf16 terms
+(``split_bf16``), which hold an fp32 value exactly, and sums their products
+(``csrc/t5_attention_bwd_fp32.cu``). ``flash_v2_eligible`` chooses between
+them as the JAX package does; both go through one C entry point.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors. Unlike the TPU kernels they take any
@@ -36,6 +38,8 @@ accumulation), division by l = max(sum, 1e-30) afterwards.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -443,6 +447,24 @@ def flash_attention_backward_v2_plain(q, k, v, pos, key_mask, m, l, dcap, g):
     return dq, dk, dv, ds.sum(dim=0)
 
 
+def split_bf16(x: torch.Tensor, terms: int = 3) -> list[torch.Tensor]:
+    """fp32 ``x`` as ``terms`` bf16 tensors whose sum approximates it: term 0
+    is x rounded to bf16 (nearest even), each further term the rounding of
+    what the earlier ones leave (an exact fp32 difference). Three terms hold
+    every fp32 value of magnitude >= 2^-110 exactly (x - x0 has at most 15
+    significant bits, x - x0 - x1 at most 7); below that bf16's subnormal
+    spacing leaves at most 2^-134. Two terms leave up to 2^-16 |x|. The
+    plain version of K2a's split (``split_g_kernel`` and ``to_frags`` in
+    ``csrc/``)."""
+    rest = x.float()
+    out = []
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return out
+
+
 def _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, fp32_operands):
     """Check the inputs and launch ``pnt_t5_attention_core_bwd``."""
     dev = q.device
@@ -479,18 +501,23 @@ def _core_backward(q, k, v, pos, key_mask, m, l, dcap, g, fp32_operands):
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     dq, dk, dv = new(B, H, Lq, d), new(B, H, Lk, d), new(B, H, Lk, d)
     dpos, dpos_part = _dpos_buffers(B, H, Lq, Lk, dev)
-    # K2b: the kernels round g to bf16 into this scratch (flash.py:555)
-    g16 = None if fp32_operands else torch.empty(
-        (B, H, Lq, d), dtype=torch.bfloat16, device=dev)
-    rc = kernels.library().pnt_t5_attention_core_bwd(
+    lib = kernels.library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    # K2b: g rounded to bf16 (flash.py:555); K2a: g's three bf16 planes and
+    # the dq partials of the key chunks
+    nbytes = ctypes.c_longlong()
+    kernels.check(lib.pnt_t5_attention_core_bwd_scratch(
+        B, H, Lq, Lk, d, int(fp32_operands), index, ctypes.byref(nbytes)),
+        "t5_attention_core_bwd")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    rc = lib.pnt_t5_attention_core_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], g.data_ptr(), *g.stride()[:3],
         pos.data_ptr(), key_mask.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dcap.data_ptr(), None if g16 is None else g16.data_ptr(),
+        dcap.data_ptr(), scratch.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dpos_part.data_ptr(), dpos.data_ptr(),
-        B, H, Lq, Lk, d, DPOS_ROWS_PER_GROUP, int(fp32_operands),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        B, H, Lq, Lk, d, DPOS_ROWS_PER_GROUP, int(fp32_operands), index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(rc, "t5_attention_core_bwd")
@@ -505,11 +532,13 @@ def flash_attention_backward(q, k, v, pos, key_mask, m, l, dcap, g):
     (B, Lk) additive fp32; m, l (B, H, Lq) the forward's statistics; dcap
     (B, H, Lq) = sum g * out; g (B, H, Lq, dk) fp32 the cotangent of the
     attention output. CPU tensors: ``flash_attention_backward_plain``. CUDA
-    tensors: ``csrc/t5_attention_bwd_fp32.cu``, which takes bf16 q/k/v of dk 64 or 128 (head dimension contiguous, other
-    strides multiples of 8, k and v sharing strides), fp32 g (head
-    dimension contiguous, other strides multiples of 4) and contiguous fp32
-    pos / key_mask / m / l / dcap. dpos is summed in a fixed order: two runs
-    on the same inputs give the same bits."""
+    tensors: ``csrc/t5_attention_bwd_fp32.cu`` (each fp32 operand as three
+    bf16 terms on the tensor cores), which takes bf16 q/k/v of dk 64 or 128
+    (head dimension contiguous, other strides multiples of 8, k and v
+    sharing strides), fp32 g (head dimension contiguous, other strides
+    multiples of 4) and contiguous fp32 pos / key_mask / m / l / dcap. dpos
+    is summed in a fixed order: two runs on the same inputs give the same
+    bits."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, pos, key_mask, m, l,
                                               dcap, g)

@@ -19,11 +19,16 @@ training paths give the kernels, t5-base widths:
 
 Per case: median CUDA-event ms per call (synchronised after each), per
 call of 20 issued back to back, the host microseconds a call takes to
-enqueue, each launched kernel's device time by torch.profiler, and for
-K4's core and K2b the memory-efficient SDPA backward on
-the same inputs (``aten._scaled_dot_product_efficient_attention_backward``
-plus the bias gradient's batch sum, as ``chip_smoke.py`` times it). One
-JSON line per (root, case), with the card's name and power limit.
+enqueue, each launched kernel's device time by torch.profiler (K2a's: the
+g split, the dq pass, the dk/dv pass, the dq chunk and dpos group sums),
+and the memory-efficient SDPA backward on the same inputs
+(``aten._scaled_dot_product_efficient_attention_backward`` plus the bias
+gradient's batch sum, as ``chip_smoke.py`` times it): bf16 operands for
+K4's core and K2b, fp32 operands with the kernels' (out, m, l) for K2a,
+with its error against K2a's plain version. One JSON line per (root,
+case), after the card's name and power limit and a line of each K2b / K2a
+case's bound (``chip_smoke.core_bwd_bound``, of this checkout: the same
+function for every root).
 """
 
 from __future__ import annotations
@@ -94,23 +99,30 @@ def _kernel_times(torch, fn, calls=10):
     return out or None
 
 
-def _library(torch, q, k, v, g, pos, km):
-    """The SDPA efficient backward and the bias gradient's batch sum."""
+def _library(torch, q, k, v, g, pos, km, dtype=None, stats=None):
+    """The SDPA efficient backward and the bias gradient's batch sum, in
+    ``dtype`` (default bf16); with ``stats`` = (out, m, l) the op's out and
+    logsumexp are the kernels' (K2a's inputs) instead of its forward's."""
+    dtype = dtype or torch.bfloat16
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
-    qc, kc, vc, gc = (t.to(torch.bfloat16).contiguous() for t in (q, k, v, g))
-    bias = torch.empty((B, H, Lq, -(-Lk // 8) * 8), dtype=torch.bfloat16,
+    qc, kc, vc, gc = (t.to(dtype).contiguous() for t in (q, k, v, g))
+    bias = torch.empty((B, H, Lq, -(-Lk // 8) * 8), dtype=dtype,
                        device="cuda")[..., :Lk]
     bias.copy_(pos[None] + km[:, None, None, :])
     ops = torch.ops.aten
     out, lse, seed, offset = ops._scaled_dot_product_efficient_attention(
         qc, kc, vc, bias, True, 0.0, False, scale=1.0)
+    if stats is not None:
+        out = stats[0].to(dtype).contiguous()
+        lse = lse.clone()
+        lse[..., :Lq] = stats[1] + torch.log(stats[2])
 
     def run():
         grads = ops._scaled_dot_product_efficient_attention_backward(
             gc, qc, kc, vc, bias, out, lse, seed, offset, 0.0,
             [True, True, True, True], False, scale=1.0)
-        return grads[3].sum(dim=0)
+        return (*grads[:3], grads[3].sum(dim=0))
 
     return run
 
@@ -155,14 +167,23 @@ def child(root: str, cases: list[str]) -> None:
                    ms=_time(torch, fn), ms_back_to_back=_time(
                        torch, fn, calls=20, reps=5),
                    host_us=_host_us(torch, fn))
-        if name in ("k4_core", "k2b"):
+        if name == "k2a":
+            lib = _library(torch, q, k, v, gout, pos, km, torch.float32,
+                           stats=(out, m, l))
+            ref = flash.flash_attention_backward_plain(q, k, v, pos, km, m,
+                                                       l, dcap, gout)
+            row.update(library_err_rel={
+                n: ((a - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(("dq", "dk", "dv", "dpos"), lib(), ref)})
+            del ref
+        else:
             lib = _library(torch, q, k, v, gout, pos, km)
-            row.update(library_ms=_time(torch, lib),
-                       library_ms_back_to_back=_time(torch, lib, calls=20,
-                                                     reps=5))
+        row.update(library_ms=_time(torch, lib),
+                   library_ms_back_to_back=_time(torch, lib, calls=20,
+                                                 reps=5))
         row["kernels_us"] = _kernel_times(torch, fn)
         print(json.dumps({"root": root, **row}), flush=True)
-        del fn
+        del fn, lib
         torch.cuda.empty_cache()
 
 
@@ -181,6 +202,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi}), flush=True)
+    sys.path.insert(0, HERE)
+    from chip_smoke import core_bwd_bound
+
+    for name in args.cases.split(","):
+        if name in ("k2b", "k2a"):
+            print(json.dumps({"case": name, "shape": list(CASES[name]),
+                              **core_bwd_bound(name, *CASES[name])}),
+                  flush=True)
     roots = [os.path.abspath(r) for r in args.roots]
     order = []
     for r in range(args.rounds):

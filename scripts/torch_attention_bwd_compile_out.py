@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Copies of this checkout with parts of the attention-backward kernels
-(``pacednegatives_tpu_torch/csrc/t5_attention_bwd.cu``) compiled out, for
-timing only: their outputs are wrong.
+"""Copies of this checkout with parts of the attention-backward passes
+(``pacednegatives_tpu_torch/csrc/t5_attention_bwd.cuh``) compiled out or
+swapped, for timing only.
 
     python3 scripts/torch_attention_bwd_compile_out.py DEST [VARIANT ...]
     python3 scripts/torch_attention_bwd_bench.py . DEST/noband DEST/noexp \\
@@ -11,8 +11,13 @@ Each VARIANT becomes DEST/<variant>, a copy of the files git tracks (or
 would track) with one edit:
 
 - ``noband``: the dq pass skips the dpos band (no shared-memory sums, no
-  partial-slab stores);
-- ``noexp``: p = (s - m) / l without the exponential, in both passes.
+  partial-slab stores); outputs wrong;
+- ``noexp``: p = (s - m) / l without the exponential, in both passes;
+  outputs wrong;
+- ``slabband``: K2a keeps all keys in one chunk and its dpos band in the
+  partial slab in global memory where the band does not fit in shared
+  memory, as K4 and K2b do; outputs right (the design K2a's key chunks
+  replace).
 
 The time a part takes is the full kernel's time less the variant's, from
 the bench script's per-kernel device times.
@@ -26,7 +31,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = "pacednegatives_tpu_torch/csrc/t5_attention_bwd.cu"
+SRC = "pacednegatives_tpu_torch/csrc/t5_attention_bwd.cuh"
 
 
 def noband(s: str) -> str:
@@ -44,7 +49,13 @@ def noexp(s: str) -> str:
     return s
 
 
-VARIANTS = {"noband": noband, "noexp": noexp}
+def slabband(s: str) -> str:
+    a = "    if (MODE != kK2a) return {0, nkt * BKV, 1, base};"
+    assert a in s, a
+    return s.replace(a, "    return {0, nkt * BKV, 1, base};")
+
+
+VARIANTS = {"noband": noband, "noexp": noexp, "slabband": slabband}
 
 
 def main(dest: str, names: list[str]) -> None:

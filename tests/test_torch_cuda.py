@@ -409,25 +409,43 @@ def _core_bwd_inputs(g, B, H, Lq, Lk, dk):
     return q, k, v, pos, km, m, l, dcap, gout
 
 
-@pytest.mark.parametrize("B,H,Lq,Lk,dk", [(5, 2, 128, 128, 64),
-                                          (2, 3, 256, 128, 128),
-                                          (3, 2, 72, 100, 64)])
-@pytest.mark.parametrize("kernel", ["k2b", "k2a"])
+_CORE_SHAPES = [(5, 2, 128, 128, 64), (2, 3, 256, 128, 128),
+                (3, 2, 72, 100, 64)]
+# K2a's split-bf16 kernels: the L 768 path's shape (two key chunks in the
+# dq pass), dk 128 (four chunks of 192 keys; 64-column halves in the dk/dv
+# pass), Lq != Lk with ragged chunks, pos rows that TMA cannot take (Lk
+# 130), and batches of 1, 5 and 9 (one, two and three dpos groups of 4, the
+# last partial)
+_K2A_SHAPES = [(8, 12, 768, 768, 64), (2, 3, 768, 768, 128),
+               (3, 2, 300, 520, 64), (1, 2, 130, 200, 128),
+               (5, 2, 200, 130, 64), (9, 2, 128, 600, 64)]
+
+
+@pytest.mark.parametrize(
+    "kernel,B,H,Lq,Lk,dk",
+    [(kernel, *shape) for kernel in ("k2b", "k2a") for shape in _CORE_SHAPES]
+    + [("k2a", *shape) for shape in _K2A_SHAPES])
 def test_core_backward_matches_plain(cuda, kernel, B, H, Lq, Lk, dk):
     """K2b / K2a against their plain versions, at aligned, Lq != Lk and
     ragged shapes, with batch sizes that leave a partial dpos group.
     Tolerances (fp32 outputs): K2b one bf16 ulp of each output's largest
     magnitude (its operands round to bf16 on both sides and may round one
-    ulp apart), K2a 1e-4 of it (fp32 operands, summation order only);
-    dpos within the elementwise bound (K2b) or 1e-4 of its largest (K2a).
-    Two runs give the same bits."""
+    ulp apart), K2a 1e-4 of it (fp32 operands: three bf16 terms each on the
+    card, which hold them exactly but for dV's dropped cross terms, 2^-23
+    of sum p|g|; so summation order and the MUFU's exp and 1 / l); dpos
+    within the elementwise bound (K2b) or 1e-4 of its largest (K2a). Two
+    runs give the same bits. The K2a shapes draw from a generator of their
+    own, so the tests after them keep their inputs."""
     fn, plain, tol = {
         "k2b": (flash.flash_attention_backward_v2,
                 flash.flash_attention_backward_v2_plain, 2.0**-7),
         "k2a": (flash.flash_attention_backward,
                 flash.flash_attention_backward_plain, 1e-4),
     }[kernel]
-    args = _core_bwd_inputs(cuda, B, H, Lq, Lk, dk)
+    g = cuda
+    if (B, H, Lq, Lk, dk) in _K2A_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * 10_000 + Lk)
+    args = _core_bwd_inputs(g, B, H, Lq, Lk, dk)
     before = fn.launches
     got = fn(*args)
     again = fn(*args)

@@ -14,6 +14,15 @@ from pacednegatives_tpu_torch.ops import flash as tflash
 from pacednegatives_tpu_torch.ops import flash_v3 as tv3
 from pacednegatives_tpu_torch.ops.gemm import gemm
 
+# torch.exp on the CPU hands contiguous fp32 to MKL's vector math, one
+# chunk per OpenMP thread. In a fresh process under heavy CPU load, the
+# first call sometimes computes one thread's chunk to ~1.5e-4 relative
+# (seen in ~2% of fresh processes, the same inputs exact in the rest;
+# later calls in the process exact): the rare failures of the fp32 parity
+# tests here. One call over every thread at import, before any test,
+# keeps that first call out of the comparisons.
+torch.exp(torch.zeros(1 << 20))
+
 # fp32 on both sides; the products differ only in summation order (depth
 # <= 384 over unit-scale values): ~1e-6 absolute on O(1) results.
 ATOL = 2e-5

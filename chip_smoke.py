@@ -38,7 +38,13 @@ Phases, one JSON line each (any failure exits non-zero):
              ``cli.train.main`` for a few optimizer steps: launch counts as
              the routing predicts, finite losses, changed weights; then one
              step with the kernels against the dense route on the same
-             weights and batch (loss and per-leaf gradients);
+             weights and batch (loss and per-leaf gradients); then the
+             runner's default config (remat with
+             ``remat_policy="dots_nobatch"``, K3 recomputed in the
+             backward) through ``cli.train.main``; the step under each
+             remat policy against remat off (step 1 bit for bit, step ms
+             and peak memory); and dropout with ``grad_accum_steps=2`` on
+             the dense route (no kernel launched);
 6. chunked - the 512-token LCE step with chunked attention and the
              attention-core kernels (t5-base, bf16, batch 16 x (1 + 7) x
              512 tokens in 8 microbatches, bf16 accumulation carry and
@@ -48,6 +54,10 @@ Phases, one JSON line each (any failure exits non-zero):
              then two steps at L 768, where K2a takes the backward (K2a
              12 times a step, K2b never), and step 1 at L 768 against the
              plain chunked route;
+   fused512 - the JAX bench's fused512: flash_v3 + fused_qkv at L 512
+             (K3 and K4 12 x 8 times a step, K1 / K2 never) with factored
+             moments, bf16 residual and carry, 8 microbatches, through
+             ``make_fused_step``; step 1 against the plain chunked route;
 7. dense   - the MIPS top-k kernels against their plain versions at the
              dense paths' scales (K6 over an 8.8M-row int8 index, K5 over a
              1M-row fp32 index at k' = 1000, bf16 docs, k' = k against an
@@ -124,10 +134,13 @@ from pacednegatives_tpu_torch.ops.mips import (
     mips_topk_pallas_quantized_plain,
     quantize_embeddings,
 )
+from pacednegatives_tpu_torch.optim import tree_leaves
 from pacednegatives_tpu_torch.train import (
     init_train_state,
+    make_fused_step,
     make_optimizer,
     make_train_step,
+    pair_index_stream,
 )
 from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE
 from pacednegatives_tpu_torch.train.runner import load_run
@@ -1036,6 +1049,29 @@ TRAIN_PRESET = dict(
 )
 
 
+# The runner's own defaults on phase 5's preset: remat on with
+# remat_policy="dots_nobatch" (RunConfig's), 4 steps.
+DEFAULT_STEPS = 4
+DEFAULT_PRESET = dict(
+    {k: v for k, v in TRAIN_PRESET.items() if k != "remat"},
+    total_steps=B_TRAIN * DEFAULT_STEPS)
+# Dropout with optax.MultiSteps: phase 5's preset on the dense route (JAX
+# refuses dropout with flash_v3), the default remat, 2 mini-steps an
+# update, 4 mini-steps: the second update moves every weight (the first
+# runs at lr(0) = 0).
+DROPOUT_PRESET = dict(DEFAULT_PRESET, flash_v3=False, dropout=True,
+                      grad_accum_steps=2)
+# phase 5's step under each remat policy, on one batch: step 1 against
+# remat off bit for bit, then REMAT_STEPS - 1 steps timed. Remat off runs
+# twice: a leaf whose step-1 moment differs between those two runs has a
+# gradient that is not bitwise repeatable (a scatter-add's order: on the
+# CPU the rel_bias tables' bucket gather backward, ~1e-12 apart), and is
+# held to the fp32 summation-order tolerance instead.
+REMAT_POLICIES = ("off", "off_again", "full", "dots_nobatch", "dots")
+REMAT_STEPS = 4
+REMAT_UNREPEATABLE_REL_L2 = 1e-5
+
+
 def _train_cfg(flash_v3: bool) -> t5.T5Config:
     return dataclasses.replace(t5.T5Config.base(), dtype=torch.bfloat16,
                                flash_v3=flash_v3, fused_qkv=True)
@@ -1152,22 +1188,18 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict,
     return fields
 
 
-def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
-             max_d: int, want_on: dict, tols: tuple, pairs: int = B_TRAIN,
-             n_neg: int = N_NEG_TRAIN, **step_kw) -> dict:
-    """Step 1 with the kernels (``cfg_on``) against the plain route
-    (``cfg_off``) on the same weights and batch (``pairs`` x (1 + ``n_neg``)
-    rows). The first update runs at lr(0) = 0, so the AdamW first moment
-    after it is 0.1 x the clipped gradient: compared leaf by leaf as
-    ||on - off|| / ||off||. The plain route must launch no kernel."""
-    loss_tol, grad_tol, grad_median_tol = tols
+def _step_env(cfg: t5.T5Config, max_d: int, pairs: int, n_neg: int):
+    """(tokenizer, DeviceCorpus, t5-base weights from seed 0 in ``cfg``'s
+    dtype, controller, one batch of ``pairs`` x (1 + ``n_neg``) rows) on
+    the card: phase 5's synthetic corpus and pools at prompt budget
+    ``max_d``."""
     tok = HashTokenizer(vocab_size=32128)
     corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
     store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
                                  max_d_tokens=max_d)
     triples = TripletStore.synthetic(corpus, n_pairs=1024, n_neg=100, seed=42)
     dc = DeviceCorpus.build(store, triples, device="cuda")
-    params = t5.init_params(cfg_on,
+    params = t5.init_params(cfg,
                             torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
     ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=1,
@@ -1177,13 +1209,29 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
     batch = dc.lce_batch(torch.Generator(device="cuda").manual_seed(1),
                          torch.arange(pairs, device="cuda"),
                          torch.tensor(0.5, device="cuda"), n_neg)
+    return tok, dc, params, ctrl, batch
+
+
+def _make_step(cfg: t5.T5Config, tok, ctrl, tx, n_neg: int, **step_kw):
+    return make_train_step(cfg, ctrl, tx, loss="lce", n_neg_per_example=n_neg,
+                           use_mean=False, rel_id=tok.true_id,
+                           nrel_id=tok.false_id, **step_kw)
+
+
+def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
+             max_d: int, want_on: dict, tols: tuple, pairs: int = B_TRAIN,
+             n_neg: int = N_NEG_TRAIN, **step_kw) -> dict:
+    """Step 1 with the kernels (``cfg_on``) against the plain route
+    (``cfg_off``) on the same weights and batch (``pairs`` x (1 + ``n_neg``)
+    rows). The first update runs at lr(0) = 0, so the AdamW first moment
+    after it is 0.1 x the clipped gradient: compared leaf by leaf as
+    ||on - off|| / ||off||. The plain route must launch no kernel."""
+    loss_tol, grad_tol, grad_median_tol = tols
+    tok, _, params, ctrl, batch = _step_env(cfg_on, max_d, pairs, n_neg)
     runs = {}
     for on, cfg in ((True, cfg_on), (False, cfg_off)):
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
-        step = make_train_step(cfg, ctrl, tx, loss="lce",
-                               n_neg_per_example=n_neg, use_mean=False,
-                               rel_id=tok.true_id, nrel_id=tok.false_id,
-                               **step_kw)
+        step = _make_step(cfg, tok, ctrl, tx, n_neg, **step_kw)
         before = _launches()
         state, metrics = step(init_train_state(params, tx,
                                                ctrl.init("cuda")), batch)
@@ -1215,6 +1263,92 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
     return fields
 
 
+def _fwd_bwd_peak_mib(cfg: t5.T5Config, params: dict, batch: dict) -> float:
+    """Peak memory of one forward + backward over ``batch``'s rows (the
+    step's weights in the compute dtype, q|k|v fused), over what was
+    allocated before it: what the step's activations and recompute take,
+    without the optimizer's temporaries."""
+    params = t5.tree_map(
+        lambda t: (t.to(cfg.dtype) if t.dim() >= 2 and t.shape[-1] >= 128
+                   else t).detach().requires_grad_(True),
+        t5.fuse_attention_params(params))
+    rows = [torch.cat([batch[f"pos_{k}"], batch[f"neg_{k}"]])
+            for k in ("ids", "mask", "labels")]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits = t5.forward_logits(params, cfg, rows[0], rows[2], rows[1])
+    logits.square().mean().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, logits
+    return peak / 2**20
+
+
+def _remat_ab(smi: str, per_step: dict, per_step_remat: dict) -> dict:
+    """Phase 5's step (flash_v3 + fused_qkv, L 188) on one batch under each
+    remat policy from the same weights: step 1's loss and AdamW first
+    moment must equal remat off's bit for bit (the recompute runs the same
+    ops and kernels on the same inputs), but for the leaves that two
+    remat-off runs already give apart (``REMAT_POLICIES``); then the
+    steps' median ms (host clock, synchronised), the peak of
+    ``torch.cuda.max_memory_allocated`` over them, and the peak of a
+    forward + backward alone (``_fwd_bwd_peak_mib``)."""
+    cfg = _train_cfg(True)
+    tok, _, params, ctrl, batch = _step_env(cfg, 160, B_TRAIN, N_NEG_TRAIN)
+    runs, ref, unrepeatable = {}, None, set()
+    for policy in REMAT_POLICIES:
+        off = policy.startswith("off")
+        c = dataclasses.replace(cfg, remat=not off,
+                                remat_policy="full" if off else policy)
+        tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+        step = _make_step(c, tok, ctrl, tx, N_NEG_TRAIN)
+        state = init_train_state(params, tx, ctrl.init("cuda"))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launches()
+        times = []
+        for i in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = (metrics["loss"].clone(),
+                         t5.flatten_params(t5.tree_map(
+                             torch.clone, state.opt_state.mu)))
+        used = {k: v - before[k] for k, v in _launches().items()}
+        want = {k: n * REMAT_STEPS for k, n in
+                (per_step if off else per_step_remat).items()}
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        fwd_bwd_peak = _fwd_bwd_peak_mib(c, params, batch)
+        if ref is None:
+            ref = first
+        differ = sorted(k for k in ref[1]
+                        if not torch.equal(first[1][k], ref[1][k]))
+        if policy == "off_again":
+            unrepeatable = set(differ)
+        rel = max((((first[1][k] - ref[1][k]).norm() / ref[1][k].norm())
+                   .item() for k in differ), default=0.0)
+        ok = (torch.equal(first[0], ref[0]) and set(differ) <= unrepeatable
+              and rel <= REMAT_UNREPEATABLE_REL_L2)
+        runs[policy] = dict(
+            step_ms=statistics.median(times[1:]), step_ms_all=times,
+            peak_mib=peak / 2**20, resident_mib=resident / 2**20,
+            fwd_bwd_peak_mib=fwd_bwd_peak,
+            step1_loss_equal_to_off=torch.equal(first[0], ref[0]),
+            step1_mu_leaves_differing_from_off=differ,
+            step1_mu_rel_l2_max=rel, loss=first[0].item(), launches=used,
+            expected_launches=want)
+        emit("train", case=f"remat_{policy}", nvidia_smi=smi, **runs[policy])
+        del first
+        if not (ok and used == want):
+            raise AssertionError(f"remat {policy}: {runs[policy]}")
+    return runs
+
+
 def phase_train(smi: str) -> dict:
     emit("train", config="t5-base", vocab=32128, dtype="bfloat16",
          flash_v3=True, fused_qkv=True, batch=B_TRAIN, n=N_NEG_TRAIN,
@@ -1229,7 +1363,20 @@ def phase_train(smi: str) -> dict:
                      _train_cfg(False), 160, per_step,
                      (STEP_LOSS_RTOL, STEP_GRAD_REL_L2,
                       STEP_GRAD_REL_L2_MEDIAN))
-    return {"run": run, "step1": step1}
+    # under remat the backward recomputes each block, K3 (GEMM, core,
+    # GEMM) included: the kernels are ctypes calls that no policy can
+    # save, as JAX saves no pallas_call output. A step: K3's core twice
+    # and K4 once per encoder layer; GEMMs 2 + 2 + 1 per layer.
+    per_step_remat = _per_step(attention=2 * layers, attention_bwd=layers,
+                               gemm=5 * layers)
+    default = _train_run(smi, "default_runconfig_dots_nobatch",
+                         DEFAULT_PRESET, per_step_remat)
+    remat = _remat_ab(smi, per_step, per_step_remat)
+    # dense attention: no kernel runs
+    dropout = _train_run(smi, "dropout_multisteps", DROPOUT_PRESET,
+                         _per_step())
+    return {"run": run, "step1": step1, "default": default, "remat": remat,
+            "dropout": dropout}
 
 
 def phase_chunked(smi: str) -> dict:
@@ -1262,6 +1409,72 @@ def phase_chunked(smi: str) -> dict:
         (STEP768_LOSS_RTOL, STEP768_GRAD_REL_L2, STEP768_GRAD_REL_L2_MEDIAN),
         pairs=B768, n_neg=N768, microbatches=1, grad_accum_dtype="fp32")
     return {"run": run, "step1": step1, "k2a_run": k2a, "step768": step768}
+
+
+def _fused512_cfg(flash_v3: bool) -> t5.T5Config:
+    return dataclasses.replace(_chunked_cfg(False), flash_v3=flash_v3)
+
+
+def phase_fused512(smi: str) -> dict:
+    """The JAX bench's fused512 (bench.py:1203-1223, bench_fused
+    :137-165): flash_v3 + fused_qkv at L 512 over chunked attention (512-key
+    chunks, no attention-core kernel), bf16 residual and carry, 8
+    microbatches, factored moments, no remat; driven through
+    make_train_step / make_fused_step (RunConfig has no ``moments``). Then
+    step 1 against the plain chunked route with fp32 AdamW."""
+    cfg = _fused512_cfg(True)
+    layers = cfg.num_layers
+    # per step: K3 and K4 once per encoder layer per microbatch; GEMMs
+    # 3 per call pair; the decoder's attention takes the plain route
+    per_step = _per_step(attention=layers * MB512, attention_bwd=layers
+                         * MB512, gemm=3 * layers * MB512)
+    emit("fused512", config="t5-base", flash_v3=True, fused_qkv=True,
+         attention_impl="chunked", attention_chunk=512, flash_kernel=False,
+         attn_residual_dtype="bf16", grad_accum_dtype="bf16",
+         moments="factored", remat=False, batch=B512, n=N512,
+         rows=B512 * (1 + N512), microbatches=MB512, prompt_len=512,
+         steps=STEPS512)
+    tok, dc, params, ctrl, _ = _step_env(cfg, 484, B512, N512)
+    tx = make_optimizer(1e-3, total_steps=STEPS512, warmup_steps=1,
+                        moments="factored")
+    step = _make_step(cfg, tok, ctrl, tx, N512, microbatches=MB512,
+                      grad_accum_dtype="bf16")
+    fused = make_fused_step(dc, step, ctrl, loss="lce", n_neg_per_example=N512)
+    state = init_train_state(params, tx, ctrl.init("cuda"))
+    pairs = pair_index_stream(1024, B512, seed=42, shuffle=False)
+    torch.cuda.synchronize()
+    _zero_launches()
+    losses, times = [], []
+    for _ in range(STEPS512):
+        idx = torch.from_numpy(next(pairs)).cuda()
+        t0 = time.perf_counter()
+        state, metrics = fused(state, idx)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = _launches()
+    want = {k: n * STEPS512 for k, n in per_step.items()}
+    init, final = t5.flatten_params(params), t5.flatten_params(state.params)
+    changed = sum(not torch.equal(final[k], init[k]) for k in init)
+    finite = bool(np.isfinite(losses).all()) and all(
+        torch.isfinite(v).all().item() for v in final.values())
+    step_s = statistics.median(times[1:])
+    fields = dict(case="fused512", steps=STEPS512, losses=losses,
+                  step_s=times, steps_per_s=1.0 / step_s,
+                  trained_negatives_per_s=B512 * N512 / step_s,
+                  launches=launches, expected_launches=want,
+                  leaves_changed=changed, leaves=len(init), finite=finite,
+                  nvidia_smi=smi)
+    emit("fused512", **fields)
+    if not (launches == want and finite and changed == len(init)):
+        raise AssertionError(f"fused512: {fields}")
+    del state, fused, step
+    step1 = _step_ab("step1_fused512_vs_plain_chunked", cfg,
+                     _fused512_cfg(False), 484, per_step,
+                     (STEP512_LOSS_RTOL, STEP512_GRAD_REL_L2,
+                      STEP512_GRAD_REL_L2_MEDIAN),
+                     pairs=B512, n_neg=N512, microbatches=MB512,
+                     grad_accum_dtype="bf16")
+    return {"run": fields, "step1": step1}
 
 
 # ---------------------------------------------------------------------------
@@ -1549,9 +1762,13 @@ def main() -> int:
     s = phase_slice()
     tr = phase_train(smi)
     ch = phase_chunked(smi)
+    f512 = phase_fused512(smi)
     dn = phase_dense(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
+             "train_default_dots_nobatch": tr["default"]["launches"],
+             "train_dropout_multisteps": tr["dropout"]["launches"],
+             "fused512": f512["run"]["launches"],
              "chunked_512": ch["run"]["launches"],
              "chunked_768": ch["k2a_run"]["launches"],
              "online": dn["online"]["launches"],
@@ -1604,6 +1821,24 @@ def main() -> int:
                       tr["run"]["trained_negatives_per_s"],
                   "step1_loss_rel_err": tr["step1"]["loss_rel_err"],
                   "step1_grad_rel_l2_max": tr["step1"]["grad_rel_l2_max"]},
+        "train_default_dots_nobatch": {
+            "steps_per_s": tr["default"]["steps_per_s"],
+            "trained_negatives_per_s":
+                tr["default"]["trained_negatives_per_s"]},
+        "remat": {policy: {key: r[key] for key in (
+            "step_ms", "peak_mib", "resident_mib", "fwd_bwd_peak_mib",
+            "step1_mu_leaves_differing_from_off")}
+            for policy, r in tr["remat"].items()},
+        "train_dropout_multisteps": {
+            "steps_per_s": tr["dropout"]["steps_per_s"],
+            "losses": tr["dropout"]["losses"]},
+        "train_fused512": {
+            "steps_per_s": f512["run"]["steps_per_s"],
+            "trained_negatives_per_s":
+                f512["run"]["trained_negatives_per_s"],
+            "step1_loss_rel_err": f512["step1"]["loss_rel_err"],
+            "step1_grad_rel_l2_max": f512["step1"]["grad_rel_l2_max"],
+            "step1_grad_rel_l2_median": f512["step1"]["grad_rel_l2_median"]},
         "train_chunked_512": {
             "steps_per_s": ch["run"]["steps_per_s"],
             "trained_negatives_per_s": ch["run"]["trained_negatives_per_s"],

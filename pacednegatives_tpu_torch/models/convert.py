@@ -13,9 +13,12 @@ are, and the port's ``encode`` / ``decode`` read each of them:
   t5.py:1223-1257).
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` over: params,
-the optax AdamW moments ``mu`` / ``nu`` and ``count``, and the curriculum's
-``EtaState`` with its own optimizer state, so a run the JAX package started
-can continue in the port, and tests can start both packages from one state.
+the optimizer's state (optax's AdamW moments ``mu`` / ``nu`` and ``count``,
+mu in fp32 or bf16; the JAX package's ``FactoredAdamState``; either inside
+``optax.MultiStepsState`` with its counters and accumulated gradients), and
+the curriculum's ``EtaState`` with its own optimizer state, so a run the
+JAX package started can continue in the port, and tests can start both
+packages from one state.
 
 Nothing here imports JAX: trees come in as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side).
@@ -32,7 +35,11 @@ from pacednegatives_tpu_torch.models.t5 import (
     flatten_params,
     unflatten_params,
 )
-from pacednegatives_tpu_torch.optim import AdamState
+from pacednegatives_tpu_torch.optim import (
+    AdamState,
+    FactoredAdamState,
+    MultiStepsState,
+)
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -49,10 +56,12 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, device: torch.device | str = "cpu") -> dict:
-    """Nested dict of numpy arrays -> the port's nested dict of tensors."""
+    """Nested dict of numpy arrays -> the port's nested dict of tensors
+    (None leaves, as a factored state's ``nu_col`` has, stay None)."""
     flat = flatten_params(tree)
     return unflatten_params(
-        {k: _to_tensor(v).to(device) for k, v in flat.items()}
+        {k: None if v is None else _to_tensor(v).to(device)
+         for k, v in flat.items()}
     )
 
 
@@ -60,7 +69,8 @@ def config_from_jax(cfg) -> T5Config:
     """A port ``T5Config`` with the fields of a JAX ``T5Config`` that the
     port has (read by attribute, so no JAX import is needed): among them
     ``attention_impl``, ``attention_chunk``, ``flash_kernel``,
-    ``attn_residual_dtype`` and ``flash_v3``. The TPU-only knobs
+    ``attn_residual_dtype``, ``flash_v3``, ``remat_policy`` and
+    ``ffn_custom_vjp``. The TPU-only knobs
     (``scan_layers``, ``packed_heads``, ``packed_lanes``, ``flash_q_block``,
     ``flash_v3_interpret``) do not carry over."""
     kwargs = {f: getattr(cfg, f) for f in T5Config.__dataclass_fields__
@@ -69,15 +79,29 @@ def config_from_jax(cfg) -> T5Config:
     return T5Config(**kwargs)
 
 
-def _adam_state(opt_state, device) -> AdamState:
-    """The optax (clip ->) adamw / adam chain state -> AdamState: the
-    ScaleByAdamState's mu, nu and count, checked against the schedule's
-    count (both advance once per update)."""
+def _opt_state(opt_state, device):
+    """An optax state of the JAX package's ``make_optimizer`` -> the port's:
+    ``MultiStepsState`` around the inner chain's; the (clip ->) adamw /
+    adam chain -> ``AdamState`` (the ScaleByAdamState's mu, nu and count);
+    the factored chain -> ``FactoredAdamState``. Adam's count is checked
+    against the schedule's (both advance once per update)."""
+
+    def tree(t):
+        if isinstance(t, dict):
+            return params_from_jax(t, device)
+        return _to_tensor(t).to(device)
+
+    if "mini_step" in getattr(opt_state, "_fields", ()):
+        return MultiStepsState(
+            mini_step=int(np.asarray(opt_state.mini_step)),
+            gradient_step=int(np.asarray(opt_state.gradient_step)),
+            inner_state=_opt_state(opt_state.inner_opt_state, device),
+            acc_grads=tree(opt_state.acc_grads))
     found = []
 
     def walk(node):  # optax states are NamedTuples, chains plain tuples
         fields = getattr(node, "_fields", ())
-        if "mu" in fields and "nu" in fields:
+        if "mu" in fields and ("nu" in fields or "nu_row" in fields):
             found.append(("adam", node))
         elif "count" in fields:
             found.append(("count", node))
@@ -94,33 +118,32 @@ def _adam_state(opt_state, device) -> AdamState:
     for kind, node in found:
         if kind == "count" and int(np.asarray(node.count)) != count:
             raise ValueError("optax schedule count differs from Adam's count")
-
-    def tree(t):
-        if isinstance(t, dict):
-            return params_from_jax(t, device)
-        return _to_tensor(t).to(device)
-
+    if "nu_row" in adam._fields:
+        return FactoredAdamState(count=count, mu=tree(adam.mu),
+                                 nu_row=tree(adam.nu_row),
+                                 nu_col=tree(adam.nu_col))
     return AdamState(count=count, mu=tree(adam.mu), nu=tree(adam.nu))
 
 
 def train_state_from_jax(state, *, seed: int = 42,
                          device: torch.device | str = "cpu"):
     """A JAX ``TrainState`` with numpy leaves (its ``key`` may be anything:
-    the port's negatives come from a ``torch.Generator`` seeded with
-    ``seed``) -> the port's ``TrainState`` on ``device``. The curriculum
-    must be an ``EtaState``."""
+    the port's negatives and dropout seeds come from ``torch.Generator``s
+    seeded with ``seed``) -> the port's ``TrainState`` on ``device``. The
+    curriculum must be an ``EtaState``."""
     from pacednegatives_tpu_torch.train.state import TrainState
 
     cur = state.curriculum
     curriculum = EtaState(
         eta=_to_tensor(cur.eta).to(device),
-        opt_state=_adam_state(cur.opt_state, device),
+        opt_state=_opt_state(cur.opt_state, device),
         step=int(np.asarray(cur.step)),
     )
     return TrainState(
         params=params_from_jax(state.params, device),
-        opt_state=_adam_state(state.opt_state, device),
+        opt_state=_opt_state(state.opt_state, device),
         curriculum=curriculum,
         step=int(np.asarray(state.step)),
         generator=torch.Generator(device=device).manual_seed(seed),
+        dropout_generator=torch.Generator().manual_seed(seed),
     )

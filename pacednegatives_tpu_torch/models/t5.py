@@ -6,10 +6,19 @@ Its flat form (``flatten_params``) is a state dict whose keys are those
 paths joined with ".", e.g. ``encoder.block_0.self_attn.q``, so converting
 a JAX checkpoint is a flatten plus ``torch.from_numpy`` (models/convert.py).
 
-The slice ported here is the deterministic forward, for serving and for
-training by autograd: ``encode`` and ``decode`` over the ``block_i`` or
-stacked ``blocks`` layout, with plain or fused (``qkv`` / ``kv``) attention
-leaves, and the teacher-forced ``forward_logits``. Numerics follow the JAX
+The forward, for serving and for training by autograd: ``encode`` and
+``decode`` over the ``block_i`` or stacked ``blocks`` layout, with plain or
+fused (``qkv`` / ``kv``) attention leaves, and the teacher-forced
+``forward_logits``; with ``deterministic=False``, dropout where the JAX
+package places it (t5.py:325-329, 614-617, 1381-1446, 1480-1551), its
+masks drawn from per-use seeds so that a recomputed block draws the same
+ones. ``remat`` runs each block under ``torch.utils.checkpoint`` with the
+JAX package's policies (t5.py:261-270): "full" recomputes the whole block,
+"dots" saves every matmul output (``aten.mm`` and ``aten.bmm``),
+"dots_nobatch" the unbatched ones (``aten.mm``: projections and FFN) and
+recomputes the attention products. The hand kernels are ``ctypes`` calls
+that the dispatcher does not see, so every policy recomputes them, as JAX
+recomputes a ``pallas_call``. Numerics follow the JAX
 package: activations in ``cfg.dtype``, RMSNorm and softmax in fp32, scores
 accumulated in fp32, ``NEG_INF`` added (not -inf) for masks. Attention is
 routed exactly as ``attention`` in the JAX package routes it
@@ -32,12 +41,18 @@ tables, as the JAX step does (train/step.py:165-178, 301-305).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from pacednegatives_tpu_torch.ops.flash import (
     flash_attention_backward,
@@ -55,10 +70,7 @@ NEG_INF = -1e9  # additive mask value, applied in fp32 (t5.py:33)
 
 @dataclasses.dataclass(frozen=True)
 class T5Config:
-    """The fields of the JAX ``T5Config`` that the port reads. Dropout
-    (``dropout_rate`` with ``deterministic=False``) is carried so that a
-    config can be converted and checked, and raises
-    ``NotImplementedError`` where it would act (ROADMAP.md slice T2). The
+    """The fields of the JAX ``T5Config`` that the port reads. The
     TPU-only knobs (scan, packed heads/lanes, ``flash_q_block``, interpret
     mode) are not carried over; see ROADMAP.md."""
 
@@ -72,14 +84,16 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
-    dropout_rate: float = 0.1  # read only by deterministic=False (not ported)
+    dropout_rate: float = 0.1  # read only with deterministic=False
     tie_word_embeddings: bool = True
     gated_ffn: bool = False  # False = T5 v1.0 ReLU FFN, True = v1.1 gated-GELU
     pad_token_id: int = 0
     decoder_start_token_id: int = 0
     dtype: torch.dtype = torch.float32  # compute dtype for activations
-    # run each block under torch.utils.checkpoint (recompute in backward);
-    # only the "full" policy is ported (the dots policies: ROADMAP.md)
+    # run each block under torch.utils.checkpoint (recompute in backward):
+    # "full" recomputes everything; "dots" saves every matmul output,
+    # (B, H, L, L) scores included; "dots_nobatch" saves the projections'
+    # and FFN's and recomputes the attention products
     remat: bool = False
     remat_policy: str = "full"
     # "dense" materialises (B, H, Lq, Lk) scores; "chunked" is exact online
@@ -99,6 +113,10 @@ class T5Config:
     # dtype of the chunked backward's saved attention output: it feeds only
     # delta = sum(g * out), so "bf16" halves it at the cost of one rounding
     attn_residual_dtype: str = "fp32"
+    # ReLU FFN through an autograd Function that saves the post-ReLU hidden
+    # and takes the ReLU mask as h > 0 (t5.py:1124-1147); the gated FFN
+    # ignores it
+    ffn_custom_vjp: bool = False
 
     @staticmethod
     def small() -> "T5Config":
@@ -400,6 +418,32 @@ def compute_position_bias(rel_bias: torch.Tensor, q_len: int, k_len: int,
     return bias.permute(2, 0, 1)[None]
 
 
+def _dropout_seeds(seed: int | None, n: int) -> list:
+    """``n`` independent 64-bit seeds from ``seed``, on the host (the
+    counterpart of ``jax.random.split``); ``[None] * n`` for no seed."""
+    if seed is None:
+        return [None] * n
+    return [int(s) for s in
+            np.random.SeedSequence(seed).generate_state(n, np.uint64)]
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: int | None,
+             deterministic: bool) -> torch.Tensor:
+    """t5.py:325-329: keep each element with probability 1 - rate and scale
+    it by 1 / (1 - rate), in x's dtype; x itself at rate 0. The mask comes
+    from a generator seeded with ``seed`` on x's device, so a recomputed
+    block draws the same mask as its forward."""
+    if deterministic or rate == 0.0:
+        return x
+    if seed is None:
+        raise ValueError("deterministic=False needs a dropout seed")
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    # JAX divides by the weak-typed 1 - rate, which takes x's dtype
+    scale = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / scale, 0.0).to(x.dtype)
+
+
 def _combine_bias(bias):
     """A combined fp32 bias, or a lazy (shared, per_batch) tuple of additive
     components (either may be None), summed as t5.py:332-342 sums them."""
@@ -414,20 +458,23 @@ def _combine_bias(bias):
 
 
 def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
-              bias) -> torch.Tensor:
+              bias, *, dropout_seed: int | None = None,
+              deterministic: bool = True) -> torch.Tensor:
     """Multi-head attention, T5-style (no 1/sqrt(d_k) scaling).
 
     x (B, Lq, D) queries source; kv (B, Lk, D); bias fp32 additive
     (1|B, H, Lq, Lk), either combined or a lazy (shared (1, H, Lq, Lk),
-    per-batch (B, 1, 1, Lk)) tuple. Deterministic only (no dropout)."""
+    per-batch (B, 1, 1, Lk)) tuple. With ``deterministic=False`` the dense
+    path drops attention weights (t5.py:614-617); flash_v3 and chunked
+    attention refuse it (``_check_training_knobs``)."""
     B, Lq, d_in = x.shape
     Lk = kv.shape[1]
     H, dk = cfg.num_heads, cfg.d_kv
     dt = cfg.dtype
 
-    # flash_v3 routing, as t5.py:400-533: deterministic (always, here),
-    # self-attention (x is kv), a lazy tuple bias, an eligible shape and a
-    # shared bias of batch 1. Decoder self-attention (Lt = 1), cross-
+    # flash_v3 routing, as t5.py:400-533: deterministic (the stacks refuse
+    # flash_v3 with dropout), self-attention (x is kv), a lazy tuple bias,
+    # an eligible shape and a shared bias of batch 1. Decoder self-attention (Lt = 1), cross-
     # attention and packed buckets shorter than 64 stay on the dense path.
     if cfg.flash_v3 and x is kv and isinstance(bias, tuple):
         shared, per_batch = bias
@@ -481,7 +528,8 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     else:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores + _combine_bias(bias)
-        weights = torch.softmax(scores, dim=-1).to(dt)
+        weights = _dropout(torch.softmax(scores, dim=-1).to(dt),
+                           cfg.dropout_rate, dropout_seed, deterministic)
         out = torch.matmul(weights, v)  # (B, H, Lq, dk)
     return torch.matmul(out.transpose(1, 2).reshape(B, Lq, H * dk),
                         p["o"].to(dt))
@@ -730,6 +778,32 @@ def flash_core(C: int, impl: str, res_dtype: str, q, k, v, shared,
     return _FlashCore.apply(C, impl, res_dtype, q, k, v, shared, per_batch)
 
 
+class _ReluFFN(torch.autograd.Function):
+    """relu(x . wi) . wo saving (x, wi, wo, h) with h after the ReLU; the
+    backward takes the ReLU's mask as h > 0 (``_relu_ffn``,
+    t5.py:1124-1147: exact wherever the pre-activation is not 0, and both
+    derivatives are 0 where it is)."""
+
+    @staticmethod
+    def forward(ctx, x, wi, wo):
+        h = torch.relu(torch.matmul(x, wi))
+        ctx.save_for_backward(x, wi, wo, h)
+        return torch.matmul(h, wo)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wi, wo, h = ctx.saved_tensors
+        dh = torch.matmul(g, wo.t())
+        ds = torch.where(h > 0, dh, torch.zeros((), dtype=dh.dtype,
+                                                device=dh.device))
+        dx = torch.matmul(ds, wi.t())
+        dwi = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                           ds.reshape(-1, ds.shape[-1]))
+        dwo = torch.matmul(h.reshape(-1, h.shape[-1]).t(),
+                           g.reshape(-1, g.shape[-1]))
+        return dx, dwi, dwo
+
+
 def mlp(p: dict, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.dtype
     if cfg.gated_ffn:
@@ -737,6 +811,8 @@ def mlp(p: dict, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
         h = torch.nn.functional.gelu(
             torch.matmul(x, p["wi_0"].to(dt)), approximate="tanh"
         ) * torch.matmul(x, p["wi_1"].to(dt))
+    elif cfg.ffn_custom_vjp:
+        return _ReluFFN.apply(x, p["wi"].to(dt), p["wo"].to(dt))
     else:
         h = torch.relu(torch.matmul(x, p["wi"].to(dt)))
     return torch.matmul(h, p["wo"].to(dt))
@@ -782,6 +858,13 @@ def position_bias_from_tables(enc_rel_bias: torch.Tensor,
 
 
 def _check_training_knobs(cfg: T5Config, deterministic: bool) -> None:
+    if not deterministic and cfg.flash_v3:
+        # as t5.py:400-407: a silent fallback to the dense path would
+        # mislabel a flash_v3 run as measuring the kernels
+        raise ValueError(
+            "flash_v3 does not support attention-weight dropout (training "
+            "with dropout=True); disable dropout or flash_v3."
+        )
     if not deterministic and cfg.attention_impl == "chunked":
         # as t5.py:584-590: a dense fallback would materialise the scores
         # chunking exists to avoid
@@ -790,40 +873,72 @@ def _check_training_knobs(cfg: T5Config, deterministic: bool) -> None:
             "dropout (training with dropout=True); use dense attention or "
             "disable dropout."
         )
-    if not deterministic:
-        raise NotImplementedError(
-            "deterministic=False (dropout) is not ported yet (ROADMAP.md "
-            "slice T2); train with dropout off"
+    if cfg.remat and cfg.remat_policy not in REMAT_SAVED_OPS:
+        raise ValueError(
+            f"remat_policy must be one of {sorted(REMAT_SAVED_OPS)}, got "
+            f"{cfg.remat_policy!r}"
         )
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP.md "
-            "slice T2); the port recomputes whole blocks: use "
-            "remat_policy='full' or remat=False"
-        )
+
+
+_aten = torch.ops.aten
+# the ops whose outputs each policy saves (t5.py:261-270): "dots" is
+# jax.checkpoint_policies.dots_saveable, "dots_nobatch"
+# dots_with_no_batch_dims_saveable. The port's projections and FFN
+# (torch.matmul of a 3-D activation by a 2-D weight) dispatch to aten.mm,
+# its attention products to aten.bmm.
+REMAT_SAVED_OPS = {
+    "full": (),
+    "dots": (_aten.mm.default, _aten.bmm.default),
+    "dots_nobatch": (_aten.mm.default,),
+}
+
+
+def remat_policy_fn(saved_ops):
+    """The selective-checkpoint policy that saves the outputs of
+    ``saved_ops`` and recomputes every other op."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved_ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _remat_contexts(policy: str):
+    return create_selective_checkpoint_contexts(
+        remat_policy_fn(REMAT_SAVED_OPS[policy]))
 
 
 def _run_block(cfg: T5Config, fn, *args):
     """One block, under torch.utils.checkpoint when cfg.remat (the
-    counterpart of jax.checkpoint with the default full-recompute
-    policy)."""
-    if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    counterpart of jax.checkpoint with ``cfg.remat_policy``)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(_remat_contexts,
+                                                   cfg.remat_policy))
 
 
 def encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
            attention_mask: torch.Tensor | None = None, *,
-           deterministic: bool = True,
+           deterministic: bool = True, dropout_seed: int | None = None,
            pos_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Encoder stack: (B, L) token ids -> (B, L, D) hidden states."""
+    """Encoder stack: (B, L) token ids -> (B, L, D) hidden states. With
+    ``deterministic=False``, dropout with masks from ``dropout_seed``."""
     _check_training_knobs(cfg, deterministic)
     if attention_mask is None:
         attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
     enc = params["encoder"]
     dt = cfg.dtype
     L = input_ids.shape[1]
-    x = params["shared"]["embedding"].to(dt)[input_ids.long()]
+    n_blocks = _num_blocks(enc)
+    # one seed per dropout site: three a block (attention weights, the
+    # attention residual, the FFN residual), the final norm, the embedding
+    seeds = _dropout_seeds(dropout_seed, 3 * n_blocks + 2)
+    x = _dropout(params["shared"]["embedding"].to(dt)[input_ids.long()],
+                 cfg.dropout_rate, seeds[-1], deterministic)
     if pos_bias is None:
         pos_bias = compute_position_bias(
             _rel_bias(enc), L, L, True,
@@ -835,28 +950,42 @@ def encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
     bias = (pos_bias, _padding_bias(attention_mask))
     eps = cfg.layer_norm_epsilon
 
-    def block(x, blk, bias):
-        h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
-        x = x + attention(blk["self_attn"], cfg, h, h, bias)
-        h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
-        return x + mlp(blk["mlp"], cfg, h)
+    def drop(t, seed):
+        return _dropout(t, cfg.dropout_rate, seed, deterministic)
 
-    for i in range(_num_blocks(enc)):
-        x = _run_block(cfg, block, x, _block(enc, i), bias)
-    return rms_norm(x, enc["final_ln"]["scale"], eps, dt)
+    def block(x, blk, bias, s_attn, s_res, s_ffn):
+        h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
+        a = attention(blk["self_attn"], cfg, h, h, bias,
+                      dropout_seed=s_attn, deterministic=deterministic)
+        x = x + drop(a, s_res)
+        h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
+        return x + drop(mlp(blk["mlp"], cfg, h), s_ffn)
+
+    for i in range(n_blocks):
+        x = _run_block(cfg, block, x, _block(enc, i), bias,
+                       *seeds[3 * i:3 * i + 3])
+    return drop(rms_norm(x, enc["final_ln"]["scale"], eps, dt), seeds[-2])
 
 
 def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
            encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor, *,
-           deterministic: bool = True,
+           deterministic: bool = True, dropout_seed: int | None = None,
            self_pos_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Decoder stack with teacher forcing -> (B, Lt, vocab) fp32 logits."""
+    """Decoder stack with teacher forcing -> (B, Lt, vocab) fp32 logits.
+    With ``deterministic=False``, dropout with masks from
+    ``dropout_seed``."""
     _check_training_knobs(cfg, deterministic)
     dec = params["decoder"]
     dt = cfg.dtype
     Lt = decoder_input_ids.shape[1]
     emb = params["shared"]["embedding"].to(dt)
-    x = emb[decoder_input_ids.long()]
+    n_blocks = _num_blocks(dec)
+    # five seeds a block (self-attention weights and residual,
+    # cross-attention weights and residual, the FFN residual), the final
+    # norm, the embedding
+    seeds = _dropout_seeds(dropout_seed, 5 * n_blocks + 2)
+    x = _dropout(emb[decoder_input_ids.long()], cfg.dropout_rate, seeds[-1],
+                 deterministic)
     if self_pos_bias is None:
         self_pos_bias = compute_position_bias(
             _rel_bias(dec), Lt, Lt, False,
@@ -867,18 +996,26 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
     cross_bias = (None, _padding_bias(encoder_mask))
     eps = cfg.layer_norm_epsilon
 
-    def block(x, blk, self_bias, cross_bias, enc_h):
-        h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
-        x = x + attention(blk["self_attn"], cfg, h, h, self_bias)
-        h = rms_norm(x, blk["ln_cross"]["scale"], eps, dt)
-        x = x + attention(blk["cross_attn"], cfg, h, enc_h, cross_bias)
-        h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
-        return x + mlp(blk["mlp"], cfg, h)
+    def drop(t, seed):
+        return _dropout(t, cfg.dropout_rate, seed, deterministic)
 
-    for i in range(_num_blocks(dec)):
+    def block(x, blk, self_bias, cross_bias, enc_h, s_self, s_self_res,
+              s_cross, s_cross_res, s_ffn):
+        h = rms_norm(x, blk["ln_self"]["scale"], eps, dt)
+        a = attention(blk["self_attn"], cfg, h, h, self_bias,
+                      dropout_seed=s_self, deterministic=deterministic)
+        x = x + drop(a, s_self_res)
+        h = rms_norm(x, blk["ln_cross"]["scale"], eps, dt)
+        a = attention(blk["cross_attn"], cfg, h, enc_h, cross_bias,
+                      dropout_seed=s_cross, deterministic=deterministic)
+        x = x + drop(a, s_cross_res)
+        h = rms_norm(x, blk["ln_mlp"]["scale"], eps, dt)
+        return x + drop(mlp(blk["mlp"], cfg, h), s_ffn)
+
+    for i in range(n_blocks):
         x = _run_block(cfg, block, x, _block(dec, i), self_bias, cross_bias,
-                       encoder_hidden)
-    x = rms_norm(x, dec["final_ln"]["scale"], eps, dt)
+                       encoder_hidden, *seeds[5 * i:5 * i + 5])
+    x = drop(rms_norm(x, dec["final_ln"]["scale"], eps, dt), seeds[-2])
     # fp32-accumulated LM head (t5.py:1553-1565); the full-vocab product is
     # a plain matmul outside any kernel
     if cfg.tie_word_embeddings:
@@ -901,16 +1038,19 @@ def forward_logits(params: dict, cfg: T5Config, input_ids: torch.Tensor,
                    labels: torch.Tensor,
                    attention_mask: torch.Tensor | None = None, *,
                    deterministic: bool = True,
+                   dropout_seed: int | None = None,
                    pos_biases: dict | None = None) -> torch.Tensor:
     """Full seq2seq forward (t5.py:1580-1609): one teacher-forced pass,
     (B, L) prompts and (B, Lt) labels -> (B, Lt, vocab) fp32 logits.
     ``pos_biases``: precomputed {"enc", "dec_self"} from
-    ``position_bias_from_tables``."""
+    ``position_bias_from_tables``; ``dropout_seed``: the masks' seed with
+    ``deterministic=False``."""
     if attention_mask is None:
         attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
+    s_enc, s_dec = _dropout_seeds(dropout_seed, 2)
     enc = encode(params, cfg, input_ids, attention_mask,
-                 deterministic=deterministic,
+                 deterministic=deterministic, dropout_seed=s_enc,
                  pos_bias=pos_biases["enc"] if pos_biases else None)
     return decode(params, cfg, shift_right(labels, cfg), enc, attention_mask,
-                  deterministic=deterministic,
+                  deterministic=deterministic, dropout_seed=s_dec,
                   self_pos_bias=pos_biases["dec_self"] if pos_biases else None)

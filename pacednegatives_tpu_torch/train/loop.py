@@ -3,8 +3,8 @@
 A plain host loop over steps. ``chunk_size`` keeps its logging meaning:
 the loop runs ``chunk_size`` steps, gathers their metrics from the device
 once, and writes them as the JAX loop writes one scanned chunk. The
-checkpoint holds everything resume needs (params, optimizer moments and
-count, curriculum state, step, the sampling generator's state), written
+checkpoint holds everything resume needs (params, the optimizer's state,
+curriculum state, step, the sampling and dropout generators' states), written
 with ``torch.save`` (there is no orbax), so resume is exact.
 """
 
@@ -96,6 +96,11 @@ def _restore(saved, template):
             raise ValueError(
                 f"checkpoint keys differ: {sorted(set(saved) ^ set(template))}")
         return {k: _restore(saved[k], v) for k, v in template.items()}
+    if template is None:  # a factored state's nu_col of a 1-D leaf
+        if saved is not None:
+            raise ValueError(f"checkpoint holds {type(saved)} where the "
+                             "state has None")
+        return None
     if isinstance(template, torch.Tensor):
         if tuple(saved.shape) != tuple(template.shape):
             raise ValueError(f"checkpoint shape {tuple(saved.shape)} != "
@@ -113,6 +118,7 @@ def save_checkpoint(path: str, state: TrainState) -> None:
         "curriculum": _plain(state.curriculum),
         "step": state.step,
         "generator": state.generator.get_state(),
+        "dropout_generator": state.dropout_generator.get_state(),
     }
     tmp = os.path.join(path, f".{CHECKPOINT_FILE}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
@@ -141,12 +147,15 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
         saved["params"], flatten_params(template.params)))
     generator = torch.Generator(device=template.generator.device)
     generator.set_state(saved["generator"])
+    dropout_generator = torch.Generator()
+    dropout_generator.set_state(saved["dropout_generator"])
     return TrainState(
         params=params,
         opt_state=_restore(saved["opt_state"], template.opt_state),
         curriculum=_restore(saved["curriculum"], template.curriculum),
         step=int(saved["step"]),
         generator=generator,
+        dropout_generator=dropout_generator,
     )
 
 

@@ -1,15 +1,17 @@
 """One config -> one training run: the port of train/runner.py.
 
-``RunConfig`` has the JAX package's fields and defaults. ``run`` ports the
-LCE curriculum (``curriculum="lce"``, ``scored_pool=0``) with fp32 AdamW,
-on static pools or with online negative mining from a dense index
-(``mining="online"``: train/online.py, K6 over an int8 index with
-``quantize_index``); dense attention with the fused self-attention kernels
-(``flash_v3``), or chunked attention with the attention-core kernels
-(``flash_kernel``) and either residual dtype; and an fp32 or bf16
-gradient-accumulation carry. Every other value of a field that
-would change what runs raises ``NotImplementedError`` naming its ROADMAP
-item: nothing is silently ignored. ``microbatch_unroll`` unrolls the JAX
+``RunConfig`` has the JAX package's fields and defaults, and ``run`` runs
+them as the JAX runner does: the LCE curriculum (``curriculum="lce"``,
+``scored_pool=0``) with AdamW, ``grad_accum_steps`` optimizer steps
+accumulated by MultiSteps, on static pools or with online negative mining
+from a dense index (``mining="online"``: train/online.py, K6 over an int8
+index with ``quantize_index``); dense attention with the fused
+self-attention kernels (``flash_v3``), or chunked attention with the
+attention-core kernels (``flash_kernel``) and either residual dtype; an
+fp32 or bf16 gradient-accumulation carry; ``remat`` with each of its
+policies, ``dropout`` and ``ffn_custom_vjp``. The fields of ``_UNPORTED``
+raise ``NotImplementedError`` naming their ROADMAP item at any other value:
+nothing is silently ignored. ``microbatch_unroll`` unrolls the JAX
 package's lax.scan and changes no result; the port's microbatch loop is a
 Python loop, so both values run the same code. ``run`` takes an explicit
 device and never falls back from CUDA to the CPU. ``load_run`` reloads a
@@ -174,9 +176,6 @@ class RunConfig:
 _UNPORTED = (
     ("curriculum", "lce", "slice C (interp, level, eta, contrast, meta)"),
     ("scored_pool", 0, "slice P (model-in-the-loop negative selection)"),
-    ("ffn_custom_vjp", False, "slice T2 (the ReLU-FFN custom VJP)"),
-    ("dropout", False, "slice T2 (dropout)"),
-    ("grad_accum_steps", 1, "slice T2 (optax.MultiSteps)"),
     ("scan_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("stacked_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("export_hf", False, "slice R (models/hf_export.py)"),
@@ -192,12 +191,6 @@ def _check_ported(cfg: RunConfig) -> None:
                 f"package yet (ROADMAP.md {item}); this slice runs "
                 f"{name}={ok!r}"
             )
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP.md "
-            "slice T2); pass --remat false, or --remat_policy full to "
-            "recompute whole blocks"
-        )
     if cfg.model not in ("tiny", "small", "base"):
         raise NotImplementedError(
             f"model={cfg.model!r}: loading an HF checkpoint is not ported "
@@ -248,6 +241,7 @@ def _build_model(cfg: RunConfig, tok, device: torch.device):
         attention_chunk=cfg.attention_chunk, flash_kernel=cfg.flash_kernel,
         flash_v3=cfg.flash_v3, fused_qkv=cfg.fused_qkv,
         attn_residual_dtype=cfg.attn_residual_dtype,
+        ffn_custom_vjp=cfg.ffn_custom_vjp,
     )
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     return init_params(mcfg, gen, device), mcfg

@@ -5,8 +5,11 @@ cast the big weights to the compute dtype once (and concatenate q|k|v once,
 with fused_qkv), one teacher-forced forward over [positives; negatives] per
 microbatch and its backward by autograd, gradient accumulation over the
 microbatches in ``grad_accum_dtype``, the biases' accumulated cotangent
-folded back into the tables through the gather's backward, AdamW, then the
-curriculum update from the same pass's CE values (step.py:145-330).
+folded back into the tables through the gather's backward, the optimizer,
+then the curriculum update from the same pass's CE values
+(step.py:145-330). With ``dropout``, each microbatch draws its masks from
+its own seed, taken on the host from ``state.dropout_generator`` (the JAX
+step splits its key over the microbatches, step.py:258).
 """
 
 from __future__ import annotations
@@ -23,21 +26,18 @@ from pacednegatives_tpu_torch.ops.losses import (
     lce_ce_flat_tokens,
     token_ce_per_token,
 )
-from pacednegatives_tpu_torch.optim import Adam, apply_updates
+from pacednegatives_tpu_torch.optim import apply_updates
 from pacednegatives_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
 
 
-def _check_slice(loss: str, dropout: bool) -> None:
+def _check_slice(loss: str) -> None:
     if loss == "pair":
         raise NotImplementedError(
             "loss='pair' is not ported yet (ROADMAP.md slice C, with the "
             "interp/level/eta curricula); use loss='lce'"
         )
-    if dropout:
-        raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP.md slice T2)")
 
 
 def _fold_rel_bias_grad(grads: dict, stack_key: str, g: torch.Tensor) -> None:
@@ -55,7 +55,7 @@ def _fold_rel_bias_grad(grads: dict, stack_key: str, g: torch.Tensor) -> None:
 def make_train_step(
     model_cfg: t5.T5Config,
     controller,
-    tx: Adam,
+    tx,
     loss: str = "pair",
     n_neg_per_example: int = 1,
     use_mean: bool = True,
@@ -93,7 +93,7 @@ def make_train_step(
             "grad_accum_dtype='bf16' requires microbatches > 1 "
             "(no accumulation carry exists at microbatches=1)"
         )
-    _check_slice(loss, dropout)
+    _check_slice(loss)
     n = n_neg_per_example
     k = microbatches
     acc_dt = torch.float32 if grad_accum_dtype == "fp32" else torch.bfloat16
@@ -105,7 +105,7 @@ def make_train_step(
             p = p.to(model_cfg.dtype)
         return p.detach().requires_grad_(True)
 
-    def loss_fn(params, biases, pos_ids, pos_mask, pos_labels, neg_ids,
+    def loss_fn(params, biases, seed, pos_ids, pos_mask, pos_labels, neg_ids,
                 neg_mask, neg_labels):
         # one forward over [positives; negatives] (step.py:200-232)
         b = pos_ids.shape[0]
@@ -113,7 +113,8 @@ def make_train_step(
         mask = torch.cat([pos_mask, neg_mask])
         labels = torch.cat([pos_labels, neg_labels])
         logits = t5.forward_logits(params, model_cfg, ids, labels, mask,
-                                   pos_biases=biases)
+                                   deterministic=not dropout,
+                                   dropout_seed=seed, pos_biases=biases)
         ce_tok = token_ce_per_token(logits, labels)
         count = (labels != -100).sum(dim=-1).clamp_min(1)
         ce_all = ce_tok.sum(dim=-1) / count
@@ -160,13 +161,17 @@ def make_train_step(
             chunks = [tuple(batch[key][i * m * r:(i + 1) * m * r]
                             for key, r in zip(keys, rows))
                       for i in range(k)]
+        # one dropout seed a microbatch, from the host generator
+        seeds = (torch.randint(2**63 - 1, (len(chunks),),
+                               generator=state.dropout_generator).tolist()
+                 if dropout else [None] * len(chunks))
         grads = None
         main_loss = torch.zeros((), dtype=torch.float32,
                                 device=batch["pos_ids"].device)
         auxes = []
-        for chunk in chunks:
+        for chunk, seed in zip(chunks, seeds):
             with torch.enable_grad():
-                l_i, aux_i = loss_fn(params_c, biases, *chunk)
+                l_i, aux_i = loss_fn(params_c, biases, seed, *chunk)
                 g_i = torch.autograd.grad(l_i, leaves, allow_unused=True)
             g_i = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(g_i, leaves)]
@@ -227,9 +232,9 @@ def make_train_step(
         if hasattr(controller, "meta_loss"):
             metrics["meta_loss"] = controller.meta_loss(state.curriculum,
                                                         signals)
-        new_state = TrainState(params=params, opt_state=opt_state,
-                               curriculum=curriculum, step=state.step + 1,
-                               generator=state.generator)
+        new_state = state._replace(params=params, opt_state=opt_state,
+                                   curriculum=curriculum,
+                                   step=state.step + 1)
         return new_state, metrics
 
     return step

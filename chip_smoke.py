@@ -79,6 +79,7 @@ that call's), and the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -1267,13 +1268,17 @@ def _fwd_bwd_peak_mib(cfg: t5.T5Config, params: dict, batch: dict) -> float:
     """Peak memory of one forward + backward over ``batch``'s rows (the
     step's weights in the compute dtype, q|k|v fused), over what was
     allocated before it: what the step's activations and recompute take,
-    without the optimizer's temporaries."""
+    without the optimizer's temporaries. Earlier steps' autograd graphs
+    can linger in reference cycles (checkpoint frames) until the cyclic
+    collector runs; collected first, so that none is freed inside the
+    measured window."""
     params = t5.tree_map(
         lambda t: (t.to(cfg.dtype) if t.dim() >= 2 and t.shape[-1] >= 128
                    else t).detach().requires_grad_(True),
         t5.fuse_attention_params(params))
     rows = [torch.cat([batch[f"pos_{k}"], batch[f"neg_{k}"]])
             for k in ("ids", "mask", "labels")]
+    gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1304,6 +1309,7 @@ def _remat_ab(smi: str, per_step: dict, per_step_remat: dict) -> dict:
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
         step = _make_step(c, tok, ctrl, tx, N_NEG_TRAIN)
         state = init_train_state(params, tx, ctrl.init("cuda"))
+        gc.collect()  # the last policy's graphs (see _fwd_bwd_peak_mib)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()

@@ -176,6 +176,7 @@ SCORE_ATOL = 5e-2
 # chunked core and its kernels: 16 pairs x (1 + 7) = 128 rows of
 # 24 + 484 + 4 = 512 tokens in 8 microbatches.
 B512, N512, STEPS512, MB512 = 16, 7, 4, 8
+ROWS512 = B512 * (1 + N512) // MB512  # one microbatch: the kernels' batch
 # Step 1, kernel route (K1 + K2b) against the plain chunked route on the
 # same weights and batch, both bf16 with a bf16 carry. K2b's arithmetic is
 # the plain backward's; the forwards differ where K1 rounds the
@@ -550,7 +551,8 @@ def phase_kernels() -> dict:
         del mask
     # K1 as the chunked path calls it: fp32 output, (B, H, L, dk) buffers,
     # at the shapes of phase 6's two runs (one microbatch each)
-    for label, B, L in (("train512", B512, 512), ("train768", ROWS768, 768)):
+    for label, B, L in (("train512", ROWS512, 512),
+                        ("train768", ROWS768, 768)):
         q, k, v = (_randn(g, B, H, L, dk) for _ in range(3))
         pos = (torch.randn((H, L, L), generator=g, device="cuda")
                * 0.5).contiguous()
@@ -588,7 +590,8 @@ def phase_kernels() -> dict:
     # K2b and K2a at the shapes of phase 6's runs (several dpos groups of
     # DPOS_ROWS_PER_GROUP rows each), plus dk 128 and Lq != Lk
     results["core_bwd"] = {
-        "k2b_train512": _check_core_bwd(g, "k2b", B512, 12, 512, 512, 64),
+        "k2b_train512": _check_core_bwd(g, "k2b", ROWS512, 12, 512, 512,
+                                        64),
         "k2b_dk128": _check_core_bwd(g, "k2b", 4, 16, 512, 512, 128),
         "k2a_L768": _check_core_bwd(g, "k2a", ROWS768, 12, 768, 768, 64),
         "k2a_Lq256_Lk128": _check_core_bwd(g, "k2a", 4, 12, 256, 128, 64),
@@ -598,39 +601,16 @@ def phase_kernels() -> dict:
         "k2a_exact_dk128": _check_k2a_exact(g, 5, 2, 70, 768, 128),
     }
 
-    # The fused block (K3) at the slice shape, T5-initialised weights and
-    # unit-scale activations. Tolerance: y is rounded to bf16 once (one
-    # ulp) on top of the attention outputs' own one-ulp flips carried
-    # through Wo (~2^-8 relative): 2^-6 of |y|max covers both.
-    x = _randn(g, B_SERVE, L_SERVE, D)
-    wqkv = torch.cat([_randn(g, D, inner, scale=(D * dk) ** -0.5),
-                      _randn(g, D, 2 * inner, scale=D**-0.5)], dim=1)
-    wo = _randn(g, inner, D, scale=inner**-0.5)
-    rel_bias = torch.randn((32, H), generator=g, device="cuda") * D**-0.5
-    pos3 = t5.compute_position_bias(rel_bias, L_SERVE, L_SERVE, True, 32,
-                                    128)[0].contiguous()
-    km = _key_mask(g, B_SERVE, L_SERVE)
-    args = (x, wqkv, wo, pos3, km)
-    ref = fused_self_attention_plain(*args)
-    rows = B_SERVE * L_SERVE
-    results["fused_self_attention"] = check(
-        "fused_self_attention", max_abs(fused_self_attention(*args), ref),
-        4 * BF16_ULP_REL * ref.float().abs().max().item(),
-        shape=[B_SERVE, L_SERVE, D],
-        ms=time_ms(lambda: fused_self_attention(*args)),
-        plain_ms=time_ms(lambda: fused_self_attention_plain(*args)),
-        library_ms=None,  # no single PyTorch call computes the block
-        # the whole call (K3): x, Wqkv, Wo in and y out (bf16); pos, key
-        # mask in and (m, l) out (fp32); both projections and the core
-        **bound(2 * (2 * rows * D + D * 3 * inner + inner * D)
-                + H * L_SERVE**2 * 4 + B_SERVE * L_SERVE * 4
-                + 2 * B_SERVE * H * L_SERVE * 4,
-                2 * rows * D * 4 * inner
-                + 4 * B_SERVE * H * L_SERVE**2 * dk, "bf16"),
-    )
+    # The fused block (K3) at the slice shape and at fused512's (one
+    # microbatch of 512 tokens)
+    results["fused_self_attention"] = {
+        "serving": _check_k3(g, "serving", B_SERVE, L_SERVE),
+        "train512": _check_k3(g, "train512", ROWS512, 512),
+    }
     results["v3_backward"] = {
         label: _check_k4(g, label, *shape)
         for label, shape in (("train", (ROWS_TRAIN, L_SERVE, 12, 64)),
+                             ("train512", (ROWS512, 512, 12, 64)),
                              ("L512_dk128", (32, 512, 12, 128)))
     }
     return results
@@ -724,6 +704,41 @@ def _sdpa_bwd_library(q, k, v, g, pos, km, dtype=torch.bfloat16,
     except RuntimeError as e:
         return {"library_ms": None, "library_ms_back_to_back": None,
                 "library_note": str(e).strip().splitlines()[0][:200]}
+
+
+def _check_k3(g, label, B, L) -> dict:
+    """The fused block (K3: GEMM + ``t5_attention_fwd`` + GEMM) against
+    ``fused_self_attention_plain``, T5-initialised weights and unit-scale
+    activations. Tolerance: y is rounded to bf16 once (one ulp) on top of
+    the attention outputs' own one-ulp flips carried through Wo (~2^-8
+    relative): 2^-6 of |y|max covers both."""
+    D, H, dk = 768, 12, 64
+    inner = H * dk
+    x = _randn(g, B, L, D)
+    wqkv = torch.cat([_randn(g, D, inner, scale=(D * dk) ** -0.5),
+                      _randn(g, D, 2 * inner, scale=D**-0.5)], dim=1)
+    wo = _randn(g, inner, D, scale=inner**-0.5)
+    rel_bias = torch.randn((32, H), generator=g, device="cuda") * D**-0.5
+    pos3 = t5.compute_position_bias(rel_bias, L, L, True, 32,
+                                    128)[0].contiguous()
+    km = _key_mask(g, B, L)
+    args = (x, wqkv, wo, pos3, km)
+    ref = fused_self_attention_plain(*args)
+    rows = B * L
+    return check(
+        f"fused_self_attention_{label}",
+        max_abs(fused_self_attention(*args), ref),
+        4 * BF16_ULP_REL * ref.float().abs().max().item(),
+        shape=[B, L, D],
+        ms=time_ms(lambda: fused_self_attention(*args)),
+        plain_ms=time_ms(lambda: fused_self_attention_plain(*args)),
+        library_ms=None,  # no single PyTorch call computes the block
+        # the whole call (K3): x, Wqkv, Wo in and y out (bf16); pos, key
+        # mask in and (m, l) out (fp32); both projections and the core
+        **bound(2 * (2 * rows * D + D * 3 * inner + inner * D)
+                + H * L**2 * 4 + B * L * 4 + 2 * B * H * L * 4,
+                2 * rows * D * 4 * inner + 4 * B * H * L**2 * dk, "bf16"),
+    )
 
 
 def _check_k4(g, label, B, L, H, dk) -> dict:
@@ -1062,15 +1077,11 @@ DEFAULT_PRESET = dict(
 # runs at lr(0) = 0).
 DROPOUT_PRESET = dict(DEFAULT_PRESET, flash_v3=False, dropout=True,
                       grad_accum_steps=2)
-# phase 5's step under each remat policy, on one batch: step 1 against
-# remat off bit for bit, then REMAT_STEPS - 1 steps timed. Remat off runs
-# twice: a leaf whose step-1 moment differs between those two runs has a
-# gradient that is not bitwise repeatable (a scatter-add's order: on the
-# CPU the rel_bias tables' bucket gather backward, ~1e-12 apart), and is
-# held to the fp32 summation-order tolerance instead.
-REMAT_POLICIES = ("off", "off_again", "full", "dots_nobatch", "dots")
+# A training step under each remat policy, on one batch: step 1 against
+# remat off bit for bit (the recompute runs the same ops and kernels on the
+# same inputs), then REMAT_STEPS - 1 steps timed and one profiled.
+REMAT_POLICIES = ("full", "dots_nobatch", "dots")
 REMAT_STEPS = 4
-REMAT_UNREPEATABLE_REL_L2 = 1e-5
 
 
 def _train_cfg(flash_v3: bool) -> t5.T5Config:
@@ -1264,14 +1275,14 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
     return fields
 
 
-def _fwd_bwd_peak_mib(cfg: t5.T5Config, params: dict, batch: dict) -> float:
-    """Peak memory of one forward + backward over ``batch``'s rows (the
-    step's weights in the compute dtype, q|k|v fused), over what was
-    allocated before it: what the step's activations and recompute take,
-    without the optimizer's temporaries. Earlier steps' autograd graphs
-    can linger in reference cycles (checkpoint frames) until the cyclic
-    collector runs; collected first, so that none is freed inside the
-    measured window."""
+def _fwd_bwd_memory(cfg: t5.T5Config, params: dict, batch: dict) -> dict:
+    """Memory of one forward + backward over ``batch``'s rows (the step's
+    weights in the compute dtype, q|k|v fused), over what was allocated
+    before it: what the forward leaves allocated (the activations the
+    policy keeps) and the peak (the recompute's included), without the
+    optimizer's temporaries. Earlier steps' autograd graphs can linger in
+    reference cycles (checkpoint frames) until the cyclic collector runs;
+    collected first, so that none is freed inside the measured window."""
     params = t5.tree_map(
         lambda t: (t.to(cfg.dtype) if t.dim() >= 2 and t.shape[-1] >= 128
                    else t).detach().requires_grad_(True),
@@ -1283,33 +1294,53 @@ def _fwd_bwd_peak_mib(cfg: t5.T5Config, params: dict, batch: dict) -> float:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     logits = t5.forward_logits(params, cfg, rows[0], rows[2], rows[1])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
     logits.square().mean().backward()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     del params, logits
-    return peak / 2**20
+    return {"held_after_forward_mib": held / 2**20,
+            "fwd_bwd_peak_mib": peak / 2**20}
 
 
-def _remat_ab(smi: str, per_step: dict, per_step_remat: dict) -> dict:
-    """Phase 5's step (flash_v3 + fused_qkv, L 188) on one batch under each
-    remat policy from the same weights: step 1's loss and AdamW first
-    moment must equal remat off's bit for bit (the recompute runs the same
-    ops and kernels on the same inputs), but for the leaves that two
-    remat-off runs already give apart (``REMAT_POLICIES``); then the
+def _profiled_step(step, state, batch):
+    """One step under ``torch.profiler``: the CUDA kernels' summed device
+    time (one stream, so they do not overlap) and the ``aten::`` ops the
+    profiler records (nested calls included)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    return state, busy, aten
+
+
+def _remat_ab(smi: str, case: str, cfg: t5.T5Config, max_d: int, pairs: int,
+              n_neg: int, policies: tuple, per_step: dict,
+              per_step_remat: dict, fwd_bwd: bool = True,
+              **step_kw) -> dict:
+    """``cfg``'s step on one batch of ``pairs`` x (1 + ``n_neg``) rows under
+    remat off and each of ``policies`` from the same weights: step 1's loss
+    and AdamW first moment must equal remat off's bit for bit; then the
     steps' median ms (host clock, synchronised), the peak of
-    ``torch.cuda.max_memory_allocated`` over them, and the peak of a
-    forward + backward alone (``_fwd_bwd_peak_mib``)."""
-    cfg = _train_cfg(True)
-    tok, _, params, ctrl, batch = _step_env(cfg, 160, B_TRAIN, N_NEG_TRAIN)
-    runs, ref, unrepeatable = {}, None, set()
-    for policy in REMAT_POLICIES:
-        off = policy.startswith("off")
+    ``torch.cuda.max_memory_allocated`` over them, one profiled step
+    (device-busy ms, ``aten`` ops) and, with ``fwd_bwd``, the memory of a
+    forward + backward alone (``_fwd_bwd_memory``)."""
+    tok, _, params, ctrl, batch = _step_env(cfg, max_d, pairs, n_neg)
+    runs, ref = {}, None
+    for policy in ("off",) + policies:
+        off = policy == "off"
         c = dataclasses.replace(cfg, remat=not off,
                                 remat_policy="full" if off else policy)
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
-        step = _make_step(c, tok, ctrl, tx, N_NEG_TRAIN)
+        step = _make_step(c, tok, ctrl, tx, n_neg, **step_kw)
         state = init_train_state(params, tx, ctrl.init("cuda"))
-        gc.collect()  # the last policy's graphs (see _fwd_bwd_peak_mib)
+        gc.collect()  # the last policy's graphs (see _fwd_bwd_memory)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1324,34 +1355,31 @@ def _remat_ab(smi: str, per_step: dict, per_step_remat: dict) -> dict:
                 first = (metrics["loss"].clone(),
                          t5.flatten_params(t5.tree_map(
                              torch.clone, state.opt_state.mu)))
-        used = {k: v - before[k] for k, v in _launches().items()}
-        want = {k: n * REMAT_STEPS for k, n in
-                (per_step if off else per_step_remat).items()}
         peak = torch.cuda.max_memory_allocated()
+        state, busy, aten = _profiled_step(step, state, batch)
+        used = {k: v - before[k] for k, v in _launches().items()}
+        want = {k: n * (REMAT_STEPS + 1) for k, n in
+                (per_step if off else per_step_remat).items()}
         del state
-        fwd_bwd_peak = _fwd_bwd_peak_mib(c, params, batch)
+        memory = _fwd_bwd_memory(c, params, batch) if fwd_bwd else {}
         if ref is None:
             ref = first
         differ = sorted(k for k in ref[1]
                         if not torch.equal(first[1][k], ref[1][k]))
-        if policy == "off_again":
-            unrepeatable = set(differ)
-        rel = max((((first[1][k] - ref[1][k]).norm() / ref[1][k].norm())
-                   .item() for k in differ), default=0.0)
-        ok = (torch.equal(first[0], ref[0]) and set(differ) <= unrepeatable
-              and rel <= REMAT_UNREPEATABLE_REL_L2)
+        step_ms = statistics.median(times[1:])
         runs[policy] = dict(
-            step_ms=statistics.median(times[1:]), step_ms_all=times,
-            peak_mib=peak / 2**20, resident_mib=resident / 2**20,
-            fwd_bwd_peak_mib=fwd_bwd_peak,
+            step_ms=step_ms, step_ms_all=times, busy_ms=busy,
+            idle_share=1.0 - busy / step_ms, aten_ops_per_step=aten,
+            peak_mib=peak / 2**20, resident_mib=resident / 2**20, **memory,
             step1_loss_equal_to_off=torch.equal(first[0], ref[0]),
             step1_mu_leaves_differing_from_off=differ,
-            step1_mu_rel_l2_max=rel, loss=first[0].item(), launches=used,
-            expected_launches=want)
-        emit("train", case=f"remat_{policy}", nvidia_smi=smi, **runs[policy])
+            loss=first[0].item(), launches=used, expected_launches=want)
+        emit("train", case=f"{case}_remat_{policy}", nvidia_smi=smi,
+             **runs[policy])
         del first
-        if not (ok and used == want):
-            raise AssertionError(f"remat {policy}: {runs[policy]}")
+        if (differ or not runs[policy]["step1_loss_equal_to_off"]
+                or used != want):
+            raise AssertionError(f"{case} remat {policy}: {runs[policy]}")
     return runs
 
 
@@ -1377,7 +1405,8 @@ def phase_train(smi: str) -> dict:
                                gemm=5 * layers)
     default = _train_run(smi, "default_runconfig_dots_nobatch",
                          DEFAULT_PRESET, per_step_remat)
-    remat = _remat_ab(smi, per_step, per_step_remat)
+    remat = _remat_ab(smi, "L188", _train_cfg(True), 160, B_TRAIN,
+                      N_NEG_TRAIN, REMAT_POLICIES, per_step, per_step_remat)
     # dense attention: no kernel runs
     dropout = _train_run(smi, "dropout_multisteps", DROPOUT_PRESET,
                          _per_step())
@@ -1403,6 +1432,14 @@ def phase_chunked(smi: str) -> dict:
                      (STEP512_LOSS_RTOL, STEP512_GRAD_REL_L2,
                       STEP512_GRAD_REL_L2_MEDIAN),
                      microbatches=MB512, grad_accum_dtype="bf16")
+    # the same step under RunConfig's default remat: K1 again in each
+    # block's recompute (a ctypes call no policy can save), K2b once
+    remat = _remat_ab(smi, "chunked512", _chunked_cfg(True), 484, B512,
+                      N512, ("dots_nobatch",), per_step,
+                      _per_step(attention=2 * layers * MB512,
+                                core_bwd_k2b=layers * MB512),
+                      fwd_bwd=False, microbatches=MB512,
+                      grad_accum_dtype="bf16")
     # L 768: K2a (the resident estimate fails the 48 MiB gate), one
     # microbatch: K1 and K2a once per encoder layer a step, K2b never
     per_step768 = _per_step(attention=layers, core_bwd_k2a=layers)
@@ -1414,7 +1451,8 @@ def phase_chunked(smi: str) -> dict:
         K2A_PRESET["max_d_tokens"], per_step768,
         (STEP768_LOSS_RTOL, STEP768_GRAD_REL_L2, STEP768_GRAD_REL_L2_MEDIAN),
         pairs=B768, n_neg=N768, microbatches=1, grad_accum_dtype="fp32")
-    return {"run": run, "step1": step1, "k2a_run": k2a, "step768": step768}
+    return {"run": run, "step1": step1, "remat": remat, "k2a_run": k2a,
+            "step768": step768}
 
 
 def _fused512_cfg(flash_v3: bool) -> t5.T5Config:
@@ -1795,12 +1833,14 @@ def main() -> int:
                refresh=k["attention"]["refresh"],
                L512_dk128=k["attention"]["L512_dk128"],
                train512_fp32_out=k["attention"]["train512_fp32_out"],
-               train768_fp32_out=k["attention"]["train768_fp32_out"]),
+               train768_fp32_out=k["attention"]["train768_fp32_out"],
+               fused_self_attention=k["fused_self_attention"]),
         _entry("t5_attention_bwd", "t5_attention_bwd.cu",
                "ops/flash_v3.py:279", total["attention_bwd"],
                k["v3_backward"]["train"],
                k4_ms=k["v3_backward"]["train"]["k4_ms"],
                k4_plain_ms=k["v3_backward"]["train"]["k4_plain_ms"],
+               train512=k["v3_backward"]["train512"],
                L512_dk128=k["v3_backward"]["L512_dk128"]),
         _entry("t5_attention_core_bwd_k2b", "t5_attention_bwd.cu",
                "ops/flash.py:614", total["core_bwd_k2b"],
@@ -1819,7 +1859,6 @@ def main() -> int:
                total["mips_topk_int8"], dk["k6_msmarco"],
                online_shape=dk["k6_online"]),
     ], "launches_by_path": paths,
-        "fused_self_attention": k["fused_self_attention"],
         "docs_per_s": {"unpacked": s["unpacked"]["docs_per_s"],
                        "packed_bucketed": s["packed"]["docs_per_s"]},
         "train": {"steps_per_s": tr["run"]["steps_per_s"],
@@ -1831,10 +1870,12 @@ def main() -> int:
             "steps_per_s": tr["default"]["steps_per_s"],
             "trained_negatives_per_s":
                 tr["default"]["trained_negatives_per_s"]},
-        "remat": {policy: {key: r[key] for key in (
-            "step_ms", "peak_mib", "resident_mib", "fwd_bwd_peak_mib",
-            "step1_mu_leaves_differing_from_off")}
-            for policy, r in tr["remat"].items()},
+        "remat": {case: {policy: {key: r.get(key) for key in (
+            "step_ms", "busy_ms", "idle_share", "peak_mib", "resident_mib",
+            "held_after_forward_mib", "fwd_bwd_peak_mib")}
+            for policy, r in runs.items()}
+            for case, runs in (("L188", tr["remat"]),
+                               ("chunked512", ch["remat"]))},
         "train_dropout_multisteps": {
             "steps_per_s": tr["dropout"]["steps_per_s"],
             "losses": tr["dropout"]["losses"]},

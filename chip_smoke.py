@@ -69,7 +69,16 @@ Phases, one JSON line each (any failure exits non-zero):
              of 16,384 docs (K6 once a step, two refreshes), and
              ``cli.build_pools.main --method dense`` on that run (K5 once
              per 64 queries; pools equal to ``--topk exact``'s up to
-             near-tie swaps).
+             near-tie swaps);
+8. evaluate - ``cli.evaluate.main`` on phase 5's run: BM25 top 1000 of
+             256 judged queries (planted topics of a 2,048-doc synthetic
+             corpus), the top 100 reranked in blocks of 64, paired metrics
+             against BM25; bf16 (K3 12 times a block) and ``--int8``
+             (``torch._int_mm``, no hand kernel). Launch counts, finite
+             scores, every judged query in the per-query file, the bm25
+             row equal to the CPU CLI's, and the first two queries' 200
+             pairs on the card against the CPU (bf16 and int8); BM25
+             build / search seconds, rerank docs/s, CLI seconds.
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -78,6 +87,8 @@ that call's), and the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
 import gc
 import json
@@ -93,6 +104,7 @@ import torch
 
 from pacednegatives_tpu_torch import kernels
 from pacednegatives_tpu_torch.cli.build_pools import main as build_pools_main
+from pacednegatives_tpu_torch.cli.evaluate import main as evaluate_main
 from pacednegatives_tpu_torch.cli.train import main as train_main
 from pacednegatives_tpu_torch.curriculum import EtaController
 from pacednegatives_tpu_torch.data import (
@@ -103,6 +115,8 @@ from pacednegatives_tpu_torch.data import (
 from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
 from pacednegatives_tpu_torch.eval.rerank import Reranker
+from pacednegatives_tpu_torch.eval.run_io import read_trec_run
+from pacednegatives_tpu_torch.index import bm25
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
 from pacednegatives_tpu_torch.ops.flash import (
@@ -1383,7 +1397,7 @@ def _remat_ab(smi: str, case: str, cfg: t5.T5Config, max_d: int, pairs: int,
     return runs
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str, run_dir: str) -> dict:
     emit("train", config="t5-base", vocab=32128, dtype="bfloat16",
          flash_v3=True, fused_qkv=True, batch=B_TRAIN, n=N_NEG_TRAIN,
          rows=ROWS_TRAIN, prompt_len=L_SERVE, steps=TRAIN_STEPS)
@@ -1392,7 +1406,9 @@ def phase_train(smi: str) -> dict:
     # the forward's two projections and the backward's qkv recompute
     per_step = _per_step(attention=layers, attention_bwd=layers,
                          gemm=3 * layers)
-    run = _train_run(smi, "cli.train.main", TRAIN_PRESET, per_step)
+    # the run directory stays for phase 8's evaluation
+    run = _train_run(smi, "cli.train.main", TRAIN_PRESET, per_step,
+                     out=run_dir)
     step1 = _step_ab("step1_flash_v3_vs_dense", _train_cfg(True),
                      _train_cfg(False), 160, per_step,
                      (STEP_LOSS_RTOL, STEP_GRAD_REL_L2,
@@ -1778,6 +1794,192 @@ def phase_dense(smi: str) -> dict:
                             "median_top1000_score_spread": spread}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: evaluation through cli.evaluate
+# ---------------------------------------------------------------------------
+
+# BM25 top 1000 per judged query, the top 100 reranked in the CLI's blocks
+# of 64: 256 queries x 100 = 25,600 pairs, 400 blocks
+EVAL_DEPTH, EVAL_BM25_K, EVAL_BATCH = 100, 1000, 64
+EVAL_CHECK_QUERIES = 2  # the card against the CPU on their 200 pairs
+# int8 scores, the card against the CPU: the int32 products are exact on
+# both; the fp32 scale / norm order and the bf16 operands of the attention
+# products round differently, and an operand an ulp apart can flip int8
+# codes downstream. On the CPU, the JAX package against the port differs
+# by up to 3.7e-3 at T5Config.tiny from such flips (tests/test_torch_
+# quant.py); 2e-2 leaves room for t5-base's 12 + 12 layers.
+INT8_SCORE_ATOL = 2e-2
+
+
+@contextlib.contextmanager
+def _timed_eval(timers: dict, scores: list):
+    """Time the CLI's BM25 build and search and its rerank, and keep the
+    scores its Reranker computes."""
+    ix_cls = bm25.LexicalIndex
+    saved = {(ix_cls, "build"): ix_cls.__dict__["build"],
+             (ix_cls, "search"): ix_cls.__dict__["search"],
+             (Reranker, "rerank"): Reranker.__dict__["rerank"],
+             (Reranker, "score_pairs"): Reranker.__dict__["score_pairs"]}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            timers[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def keep(self, q_rows, d_rows):
+        out = saved[(Reranker, "score_pairs")](self, q_rows, d_rows)
+        scores.append(out)
+        return out
+
+    ix_cls.build = classmethod(timed(saved[(ix_cls, "build")].__func__,
+                                     "bm25_build_s"))
+    ix_cls.search = timed(saved[(ix_cls, "search")], "bm25_search_s")
+    Reranker.rerank = timed(saved[(Reranker, "rerank")], "rerank_s")
+    Reranker.score_pairs = keep
+    try:
+        yield
+    finally:
+        for (cls, name), attr in saved.items():
+            setattr(cls, name, attr)
+
+
+def _read_csv(path: str) -> list[dict]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _evaluate(smi: str, label: str, argv: list[str], out: str,
+              judged: set, want: dict) -> dict:
+    """cli.evaluate.main on the card, counted and timed: launches must be
+    ``want``, scores finite, every judged query in the per-query file."""
+    timers = {"bm25_build_s": 0.0, "bm25_search_s": 0.0, "rerank_s": 0.0}
+    scores: list = []
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _timed_eval(timers, scores):
+        rows = evaluate_main(argv + ["--out", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    s = np.concatenate(scores)
+    per = _read_csv(os.path.join(out, "perqueryresults.csv"))
+    covered = {(r["name"], r["measure"]): set() for r in per}
+    for r in per:
+        covered[(r["name"], r["measure"])].add(r["qid"])
+    results = _read_csv(os.path.join(out, "results.csv"))
+    ok_rows = [r["name"] for r in results] == ["bm25", "run"] \
+        and len(covered) == 6 and all(q == judged for q in covered.values())
+    fields = dict(
+        case=label, pairs=len(s), blocks=-(-len(s) // EVAL_BATCH),
+        seconds=seconds, **timers, rerank_docs_per_s=len(s) / timers[
+            "rerank_s"], native_bm25=bm25._lib() is not None,
+        launches=launches, expected_launches=want,
+        finite=bool(np.isfinite(s).all()), every_judged_query=ok_rows,
+        metrics={r["name"]: {k: float(v) for k, v in r.items()
+                             if k != "name" and v != ""}
+                 for r in results}, nvidia_smi=smi)
+    emit("evaluate", **fields)
+    if not (launches == want and fields["finite"] and ok_rows):
+        raise AssertionError(f"evaluate {label}: {fields}")
+    return {**fields, "rows": rows}
+
+
+def _spearman(a: np.ndarray, b: np.ndarray) -> float:
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def phase_evaluate(smi: str, run_dir: str) -> dict:
+    """BM25 first stage -> monoT5 rerank on the card -> paired metrics,
+    through ``cli.evaluate.main`` on phase 5's run (t5-base, bf16,
+    flash_v3 + fused_qkv, L 188): bf16 (K3 12 times a block of 64) and
+    ``--int8`` (``torch._int_mm``, no hand kernel)."""
+    corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=0,
+                                  doc_len=150, query_len=12)
+    layers = t5.T5Config.base().num_layers
+    emit("evaluate", config="t5-base", run="phase 5's cli.train run",
+         docs=corpus.num_docs, queries=corpus.num_queries, depth=EVAL_DEPTH,
+         bm25_k=EVAL_BM25_K, batch=EVAL_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.tsv")
+                 for k in ("docs", "queries", "qrels")}
+        _write_tsv(paths["docs"], corpus.doc_ids, corpus.doc_texts)
+        _write_tsv(paths["queries"], corpus.query_ids, corpus.query_texts)
+        # the planted topics: doc d is relevant to query d % 256
+        with open(paths["qrels"], "w") as f:
+            f.writelines(f"q{d % 256}\td{d}\t1\n"
+                         for d in range(corpus.num_docs))
+        judged = set(corpus.query_ids)
+        argv = ["--docs", paths["docs"], "--queries", paths["queries"],
+                "--qrels", paths["qrels"], "--depth", str(EVAL_DEPTH),
+                "--bm25_k", str(EVAL_BM25_K), "--save_runs", "true",
+                "--perquery", "true", "--model", run_dir]
+        blocks = -(-len(judged) * EVAL_DEPTH // EVAL_BATCH)
+        bf16 = _evaluate(smi, "bf16", argv, os.path.join(tmp, "bf16"),
+                         judged, _per_step(attention=layers * blocks,
+                                           gemm=2 * layers * blocks))
+        int8 = _evaluate(smi, "int8", argv + ["--int8", "true"],
+                         os.path.join(tmp, "int8"), judged, _per_step())
+
+        # the bm25 row: host code, so the CPU's must be the same
+        t0 = time.perf_counter()
+        cpu_rows = evaluate_main(argv[:-2] + ["--out",
+                                              os.path.join(tmp, "cpu"),
+                                              "--device", "cpu"])
+        bm25_same = cpu_rows == bf16["rows"][:1] == int8["rows"][:1]
+        emit("evaluate", check="bm25_row_vs_cpu", equal=bm25_same,
+             cpu_seconds=time.perf_counter() - t0)
+        if not bm25_same:
+            raise AssertionError(f"bm25 row: {cpu_rows} vs {bf16['rows']}")
+
+        # the first judged queries' pairs: the card against the CPU
+        first, _ = read_trec_run(os.path.join(tmp, "bf16", "bm25.run"))
+        qids = [q for q in corpus.query_ids if q in first][
+            :EVAL_CHECK_QUERIES]
+        q_rows = np.asarray([corpus.query_index[q] for q in qids
+                             for _ in range(EVAL_DEPTH)], np.int64)
+        d_rows = np.asarray([corpus.doc_index[d] for q in qids
+                             for d in first[q][:EVAL_DEPTH]], np.int64)
+    checks, card = {}, {}
+    for label, int8_on, tol in (("bf16", False, SCORE_ATOL),
+                                ("int8", True, INT8_SCORE_ATOL)):
+        got = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            params, mcfg, tok, rc = load_run(run_dir, device=dev)
+            store = TokenizedStore.build(corpus, tok,
+                                         max_q_tokens=rc.max_q_tokens,
+                                         max_d_tokens=rc.max_d_tokens)
+            rr = Reranker(params, mcfg, store, corpus, rel_id=tok.true_id,
+                          nrel_id=tok.false_id, batch_size=len(q_rows) // 2,
+                          int8=int8_on, device=dev)
+            got[dev] = rr.score_pairs(q_rows, d_rows)
+            del params, rr
+        card[label] = got["cuda"]
+        err = float(np.abs(got["cuda"] - got["cpu"]).max())
+        checks[label] = check(f"evaluate_{label}_scores_vs_cpu", err, tol,
+                              pairs=len(q_rows),
+                              seconds=time.perf_counter() - t0)
+    top10 = [len(set(np.argsort(-card["bf16"][i:i + EVAL_DEPTH])[:10])
+                 & set(np.argsort(-card["int8"][i:i + EVAL_DEPTH])[:10]))
+             for i in range(0, len(q_rows), EVAL_DEPTH)]
+    # as information: how far int8 moves the ranking, beside how far
+    # apart the bf16 scores lie
+    fidelity = dict(spearman=_spearman(card["bf16"], card["int8"]),
+                    top10_overlap=top10,
+                    max_abs_diff=float(np.abs(card["int8"]
+                                              - card["bf16"]).max()),
+                    bf16_score_std=float(card["bf16"].std()))
+    emit("evaluate", check="int8_vs_bf16_on_card", **fidelity)
+    return {"bf16": bf16, "int8": int8, "checks": checks,
+            "int8_vs_bf16": fidelity}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -1804,10 +2006,13 @@ def main() -> int:
     phase_build()
     k = phase_kernels()
     s = phase_slice()
-    tr = phase_train(smi)
-    ch = phase_chunked(smi)
-    f512 = phase_fused512(smi)
-    dn = phase_dense(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        tr = phase_train(smi, run_dir)
+        ch = phase_chunked(smi)
+        f512 = phase_fused512(smi)
+        dn = phase_dense(smi)
+        ev = phase_evaluate(smi, run_dir)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -1816,7 +2021,9 @@ def main() -> int:
              "chunked_512": ch["run"]["launches"],
              "chunked_768": ch["k2a_run"]["launches"],
              "online": dn["online"]["launches"],
-             "build_pools": dn["build_pools"]["launches"]}
+             "build_pools": dn["build_pools"]["launches"],
+             "evaluate": ev["bf16"]["launches"],
+             "evaluate_int8": ev["int8"]["launches"]}
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -1903,6 +2110,13 @@ def main() -> int:
         "build_pools": {key: dn["build_pools"][key] for key in
                         ("seconds", "pools", "near_tie_swaps_vs_exact",
                          "median_top1000_score_spread")},
+        "evaluate": {label: {key: ev[label][key] for key in (
+            "pairs", "seconds", "bm25_build_s", "bm25_search_s", "rerank_s",
+            "rerank_docs_per_s", "native_bm25", "metrics")}
+            for label in ("bf16", "int8")},
+        "evaluate_scores_vs_cpu": {label: r["max_abs_err"]
+                                   for label, r in ev["checks"].items()},
+        "evaluate_int8_vs_bf16": ev["int8_vs_bf16"],
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -2,18 +2,24 @@
 (compute_all_bm25 parity).
 
 The top-``cutoff`` docs of every query (queries with a short pool are
-dropped), reversed so that index 0 is the EASIEST negative. The port runs
+dropped), reversed so that index 0 is the EASIEST negative. ``--method
+bm25`` (the default) searches the native lexical index on the host
+(index/bm25.py, ``--k1`` / ``--b``) and writes what the JAX CLI writes.
 ``--method dense``: a trained run's encoder embeds the corpus and the
 queries, and a ``DenseIndex`` answers them in batches of 64 queries with
 ``--topk pallas`` (K5 on the card) or ``--topk exact``.
 
-Usage (``--device`` defaults to cuda; there is no fallback to the CPU):
+Usage (``--device``, read by ``--method dense``, defaults to cuda; there
+is no fallback to the CPU):
+  python -m pacednegatives_tpu_torch.cli.build_pools \\
+      --docs docs.tsv --queries queries.tsv --pairs pairs.tsv \\
+      --out pools.jsonl --cutoff 1000
   python -m pacednegatives_tpu_torch.cli.build_pools --method dense \\
       --run runs/out --docs docs.tsv --queries queries.tsv \\
       --pairs pairs.tsv --out pools.jsonl --cutoff 1000 --topk pallas
 ``pairs.tsv``: qid<TAB>doc_id_a rows (one positive per query); without it,
 doc_id_a is left empty for downstream joining (collate_dataset parity).
-``--method bm25`` and ``--method splade`` are not ported yet.
+``--method splade`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,18 +37,15 @@ def main(argv=None) -> str:
     docs, queries = args["docs"], args["queries"]
     out = args["out"]
     cutoff = int(args.get("cutoff", 1000))
+    k1 = float(args.get("k1", 1.2))
+    b = float(args.get("b", 0.75))
     pairs_path = args.get("pairs")
     method = args.get("method", "bm25")
-    if method == "bm25":
-        raise NotImplementedError(
-            "--method bm25 needs the native lexical index (native/, "
-            "index/bm25.py), not ported yet (ROADMAP.md slice E); use "
-            "--method dense")
     if method == "splade":
         raise NotImplementedError(
             "--method splade needs models/splade.py and index/sparse.py, "
-            "not ported yet (ROADMAP.md slice R); use --method dense")
-    if method != "dense":
+            "not ported yet (ROADMAP.md slice R); use --method bm25 or dense")
+    if method not in ("bm25", "dense"):
         raise SystemExit(f"unknown method {method}")
 
     from pacednegatives_tpu_torch.data import TextCorpus
@@ -55,10 +58,21 @@ def main(argv=None) -> str:
                 qid, _, did = line.rstrip("\n").partition("\t")
                 pairs[qid] = did
 
+    if method == "bm25":
+        from pacednegatives_tpu_torch.index.bm25 import LexicalIndex
+
+        ix = LexicalIndex.build(corpus.doc_texts)
+        pools_iter = (
+            (qid, ix.search(qtext, k=cutoff, k1=k1, b=b)[0])
+            for qid, qtext in zip(corpus.query_ids, corpus.query_texts)
+        )
+    else:
+        pools_iter = _dense_pools(args, corpus, cutoff)
+
     n_written = n_skipped = 0
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
-        for qid, ids in _dense_pools(args, corpus, cutoff):
+        for qid, ids in pools_iter:
             if len(ids) < cutoff:
                 # keep only full pools (compute_all_bm25.py:38-40)
                 n_skipped += 1

@@ -2,10 +2,10 @@
 
 Takes a first-stage run {qid: [doc_id, ...]}, scores every (query, doc)
 prompt with the model in fixed-size batches on ``device`` (default cuda),
-and returns each query's candidates ordered by score. Host-side prompt
-assembly, padding, packing and length bucketing are the JAX
-``Reranker``'s, line for line, so the two packages batch the same pairs at
-the same lengths.
+and returns each query's candidates ordered by score (``int8=True``: the
+W8A8 forward of models/quant.py). Host-side prompt assembly, padding,
+packing and length bucketing are the JAX ``Reranker``'s, line for line, so
+the two packages batch the same pairs at the same lengths.
 """
 
 from __future__ import annotations
@@ -20,6 +20,10 @@ from pacednegatives_tpu_torch.data.corpus import TextCorpus
 from pacednegatives_tpu_torch.data.pipeline import TokenizedStore
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.monot5 import score_batch
+from pacednegatives_tpu_torch.models.quant import (
+    quantize_scoring_params,
+    score_batch_int8,
+)
 
 # leaves that only ever enter a matmul in cfg.dtype: casting them once is
 # the same as the per-use casts (norm scales and rel_bias stay fp32)
@@ -58,6 +62,10 @@ class Reranker:
     # that fits its longest pair (pairs sorted by true length first).
     # None = always the full prompt length.
     bucket_lens: tuple[int, ...] | None = None
+    # int8=True serves with the W8A8 dynamic-quant forward
+    # (models/quant.py); the weights are quantized once, here, on
+    # ``device``. Composes with packed / bucketed serving.
+    int8: bool = False
     # the card unless the caller asks for the CPU; there is no fallback
     device: torch.device | str = "cuda"
 
@@ -67,11 +75,24 @@ class Reranker:
             raise RuntimeError(
                 "Reranker(device='cuda'): torch.cuda.is_available() is "
                 "false; pass device='cpu' to score on the CPU")
-        self.params = serving_params(self.params, self.cfg, self.device)
+        if self.int8:
+            # from the weights as given (fp32 in a checkpoint), as the JAX
+            # Reranker quantizes them, not from the bf16 serving copy; the
+            # fused layout's per-column codes and scales are the separate
+            # layout's, and its q|k|v take one product
+            with torch.inference_mode():
+                self.params = quantize_scoring_params(
+                    t5.fuse_attention_params(t5.tree_map(
+                        lambda a: a.to(self.device), self.params)),
+                    self.cfg)
+            self._score_fn = score_batch_int8
+        else:
+            self.params = serving_params(self.params, self.cfg, self.device)
+            self._score_fn = score_batch
 
     def _score(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            s = score_batch(
+            s = self._score_fn(
                 self.params, self.cfg,
                 torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device),

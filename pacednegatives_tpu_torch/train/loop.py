@@ -139,16 +139,23 @@ def latest_checkpoint(out_dir: str) -> str | None:
     return final if os.path.exists(final) else None
 
 
-def restore_checkpoint(path: str, template: TrainState) -> TrainState:
-    """Restore into the structure of ``template`` (an initialized state)."""
+def restore_checkpoint(path: str, template: TrainState,
+                       generators: bool = True) -> TrainState:
+    """Restore into the structure of ``template`` (an initialized state).
+    ``generators=False`` keeps the template's generators: a run trained on
+    the card saved a CUDA generator's state, which no CPU generator takes,
+    and reloading weights to score needs none."""
     saved = torch.load(os.path.join(path, CHECKPOINT_FILE),
                        map_location="cpu", weights_only=True)
     params = unflatten_params(_restore(
         saved["params"], flatten_params(template.params)))
-    generator = torch.Generator(device=template.generator.device)
-    generator.set_state(saved["generator"])
-    dropout_generator = torch.Generator()
-    dropout_generator.set_state(saved["dropout_generator"])
+    generator, dropout_generator = (template.generator,
+                                    template.dropout_generator)
+    if generators:
+        generator = torch.Generator(device=template.generator.device)
+        generator.set_state(saved["generator"])
+        dropout_generator = torch.Generator()
+        dropout_generator.set_state(saved["dropout_generator"])
     return TrainState(
         params=params,
         opt_state=_restore(saved["opt_state"], template.opt_state),

@@ -378,7 +378,8 @@ def load_run(run_dir: str, checkpoint: str = "final",
     """Reload a run directory written by ``run`` (its ``config.json`` and
     ``torch.save`` checkpoint) -> (params, model_cfg, tokenizer,
     RunConfig), the weights on ``device`` (the card unless asked for the
-    CPU). Strict: a checkpoint that does not fit the config raises."""
+    CPU), whichever device trained them. Strict: a checkpoint that does
+    not fit the config raises."""
     from pacednegatives_tpu_torch.train.loop import restore_checkpoint
     from pacednegatives_tpu_torch.train.state import (
         init_train_state,
@@ -396,7 +397,8 @@ def load_run(run_dir: str, checkpoint: str = "final",
     template = init_train_state(
         params, tx, _build_controller(cfg, tok.vocab_size).init(device),
         seed=cfg.seed)
-    state = restore_checkpoint(os.path.join(run_dir, checkpoint), template)
+    state = restore_checkpoint(os.path.join(run_dir, checkpoint), template,
+                               generators=False)
     return state.params, mcfg, tok, cfg
 
 

@@ -22,6 +22,7 @@ from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
+from pacednegatives_tpu_torch.models import quant
 from pacednegatives_tpu_torch.ops import flash, flash_v3, gemm, mips
 from pacednegatives_tpu_torch.train import (
     init_train_state,
@@ -243,6 +244,57 @@ def test_small_rerank_matches_cpu(cuda):
     s_cpu = cpu.score_pairs(q_rows, d_rows)
     assert np.isfinite(s_gpu).all()
     assert np.abs(s_gpu - s_cpu).max() <= 5e-2
+
+
+@pytest.mark.parametrize("shape,N", [((8, 1, 768), 2304),
+                                     ((12, 768), 768),
+                                     ((4, 45, 64), 96),
+                                     ((2, 188, 768), 3072)])
+def test_int8_linear_on_card_matches_cpu(cuda, shape, N):
+    """``torch._int_mm`` on the card (cuBLASLt) against the CPU: the same
+    int8 codes, an exact int32 accumulator and the same fp32 scale
+    multiplies, so the outputs agree to fp32 rounding. (8, 1, 768) and
+    (12, 768) have fewer rows than cuBLASLt takes (the decoder's
+    one-position rows at a small batch): ``int8_linear`` pads them."""
+    x = torch.randn(shape, generator=cuda, device="cuda") * 2.0
+    w = torch.randn((shape[-1], N), generator=cuda, device="cuda") * 0.05
+    qw = quant._quantize_weight(w)
+    got = quant.int8_linear(x, qw)
+    ref = quant.int8_linear(x.cpu(), {k: v.cpu() for k, v in qw.items()})
+    assert torch.equal(quant._quantize_tokens(x)[0].cpu(),
+                       quant._quantize_tokens(x.cpu())[0])
+    assert got.shape == shape[:-1] + (N,) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=0)
+
+
+def test_int8_rerank_matches_cpu(cuda):
+    """``Reranker(int8=True)`` on the card against the CPU at a small
+    width, batch 8 (the decoder's int8 products then have 8 rows, padded
+    for cuBLASLt), packed with length buckets. Tolerance 2e-2 on
+    log-probs: the int32 products are exact on both, but the fp32
+    attention products and softmax sum in another order, which can move a
+    bf16-rounded operand by an ulp and flip int8 codes downstream."""
+    cfg = t5.T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                      num_heads=2, num_layers=2, num_decoder_layers=2,
+                      dtype=torch.bfloat16, flash_v3=True)
+    params = t5.init_params(cfg, torch.Generator().manual_seed(0))
+    corpus = TextCorpus.synthetic(num_docs=48, num_queries=2, seed=0,
+                                  doc_len=40, query_len=4)
+    store = TokenizedStore.build(corpus, HashTokenizer(512), max_q_tokens=8,
+                                 max_d_tokens=72)
+    kw = dict(rel_id=3, nrel_id=4, batch_size=8, int8=True, packed=True,
+              bucket_lens=tuple(range(32, store.prompt_len, 32)))
+    q_rows = np.repeat([0, 1], 24)
+    d_rows = np.arange(48)
+    gpu = Reranker(params, cfg, store, corpus, device="cuda", **kw)
+    cpu = Reranker(params, cfg, store, corpus, device="cpu", **kw)
+    before = (flash.flash_attention_forward.launches, gemm.gemm.launches)
+    s_gpu = gpu.score_pairs(q_rows, d_rows)
+    assert (flash.flash_attention_forward.launches,
+            gemm.gemm.launches) == before  # no hand kernel on this path
+    s_cpu = cpu.score_pairs(q_rows, d_rows)
+    assert np.isfinite(s_gpu).all()
+    assert np.abs(s_gpu - s_cpu).max() <= 2e-2
 
 
 def _bwd_inputs(g, B, H, L, dk):

@@ -78,7 +78,21 @@ Phases, one JSON line each (any failure exits non-zero):
              scores, every judged query in the per-query file, the bm25
              row equal to the CPU CLI's, and the first two queries' 200
              pairs on the card against the CPU (bf16 and int8); BM25
-             build / search seconds, rerank docs/s, CLI seconds.
+             build / search seconds, rerank docs/s, CLI seconds;
+9. curricula - ``cli.train.main`` at phase 5's preset for 6 steps under
+             each pacing curriculum: interp, level, eta and contrast (the
+             pair loss: K3 = K4 = 12 a step over 32 rows), meta-cheap (K3
+             48, K4 24 a step) and, dense, 2 steps of meta-std (no
+             kernel). Launch counts, finite losses, every weight moved,
+             median step ms of steps 2-6, and each difficulty trajectory
+             (the pool slots drawn included) equal to the controller's
+             rule replayed on the host from the logged metrics; one pair
+             step and one meta-cheap step with the kernels against the
+             dense route; one meta-std step under ``dots_nobatch``
+             against remat off; the pair step alone, timed and one step
+             profiled; meta-std's
+             v-gradient at t5-base in fp32 against central finite
+             differences; and meta-std refusing the kernels' routes.
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -106,7 +120,10 @@ from pacednegatives_tpu_torch import kernels
 from pacednegatives_tpu_torch.cli.build_pools import main as build_pools_main
 from pacednegatives_tpu_torch.cli.evaluate import main as evaluate_main
 from pacednegatives_tpu_torch.cli.train import main as train_main
-from pacednegatives_tpu_torch.curriculum import EtaController
+from pacednegatives_tpu_torch.curriculum import (
+    EtaController,
+    MetaWeightTable,
+)
 from pacednegatives_tpu_torch.data import (
     HashTokenizer,
     TextCorpus,
@@ -153,11 +170,12 @@ from pacednegatives_tpu_torch.optim import tree_leaves
 from pacednegatives_tpu_torch.train import (
     init_train_state,
     make_fused_step,
+    make_meta_train_step,
     make_optimizer,
     make_train_step,
     pair_index_stream,
 )
-from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE
+from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE, MetricWriter
 from pacednegatives_tpu_torch.train.runner import load_run
 
 BF16_ULP_REL = 2.0**-7  # one bf16 ulp, relative to the largest magnitude
@@ -1214,11 +1232,13 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict,
     return fields
 
 
-def _step_env(cfg: t5.T5Config, max_d: int, pairs: int, n_neg: int):
+def _step_env(cfg: t5.T5Config, max_d: int, pairs: int, n_neg: int,
+              loss: str = "lce"):
     """(tokenizer, DeviceCorpus, t5-base weights from seed 0 in ``cfg``'s
     dtype, controller, one batch of ``pairs`` x (1 + ``n_neg``) rows) on
     the card: phase 5's synthetic corpus and pools at prompt budget
-    ``max_d``."""
+    ``max_d``; with ``loss="pair"``, the pair batch at difficulty 0.5 and
+    an eta controller (one negative an example)."""
     tok = HashTokenizer(vocab_size=32128)
     corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
     store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
@@ -1232,32 +1252,42 @@ def _step_env(cfg: t5.T5Config, max_d: int, pairs: int, n_neg: int):
                          total_steps=8, kind="lce", objective="weighted_ce",
                          optimizer="adamw", clamp=False,
                          ce_scale=(1 + n_neg) * float(np.log(32128)))
+    if loss == "pair":
+        ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=1,
+                             total_steps=8, kind="eta",
+                             objective="self_paced", ce_scale=PACED_CE_SCALE)
+        batch = dc.pair_batch(torch.arange(pairs, device="cuda"),
+                              torch.tensor(0.5, device="cuda"))
+        return tok, dc, params, ctrl, batch
     batch = dc.lce_batch(torch.Generator(device="cuda").manual_seed(1),
                          torch.arange(pairs, device="cuda"),
                          torch.tensor(0.5, device="cuda"), n_neg)
     return tok, dc, params, ctrl, batch
 
 
-def _make_step(cfg: t5.T5Config, tok, ctrl, tx, n_neg: int, **step_kw):
-    return make_train_step(cfg, ctrl, tx, loss="lce", n_neg_per_example=n_neg,
+def _make_step(cfg: t5.T5Config, tok, ctrl, tx, n_neg: int,
+               loss: str = "lce", **step_kw):
+    return make_train_step(cfg, ctrl, tx, loss=loss, n_neg_per_example=n_neg,
                            use_mean=False, rel_id=tok.true_id,
                            nrel_id=tok.false_id, **step_kw)
 
 
 def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
              max_d: int, want_on: dict, tols: tuple, pairs: int = B_TRAIN,
-             n_neg: int = N_NEG_TRAIN, **step_kw) -> dict:
+             n_neg: int = N_NEG_TRAIN, loss: str = "lce",
+             **step_kw) -> dict:
     """Step 1 with the kernels (``cfg_on``) against the plain route
     (``cfg_off``) on the same weights and batch (``pairs`` x (1 + ``n_neg``)
     rows). The first update runs at lr(0) = 0, so the AdamW first moment
     after it is 0.1 x the clipped gradient: compared leaf by leaf as
     ||on - off|| / ||off||. The plain route must launch no kernel."""
     loss_tol, grad_tol, grad_median_tol = tols
-    tok, _, params, ctrl, batch = _step_env(cfg_on, max_d, pairs, n_neg)
+    tok, _, params, ctrl, batch = _step_env(cfg_on, max_d, pairs, n_neg,
+                                            loss)
     runs = {}
     for on, cfg in ((True, cfg_on), (False, cfg_off)):
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
-        step = _make_step(cfg, tok, ctrl, tx, n_neg, **step_kw)
+        step = _make_step(cfg, tok, ctrl, tx, n_neg, loss, **step_kw)
         before = _launches()
         state, metrics = step(init_train_state(params, tx,
                                                ctrl.init("cuda")), batch)
@@ -1336,7 +1366,7 @@ def _profiled_step(step, state, batch):
 
 def _remat_ab(smi: str, case: str, cfg: t5.T5Config, max_d: int, pairs: int,
               n_neg: int, policies: tuple, per_step: dict,
-              per_step_remat: dict, fwd_bwd: bool = True,
+              per_step_remat: dict, fwd_bwd: bool = True, loss: str = "lce",
               **step_kw) -> dict:
     """``cfg``'s step on one batch of ``pairs`` x (1 + ``n_neg``) rows under
     remat off and each of ``policies`` from the same weights: step 1's loss
@@ -1345,14 +1375,14 @@ def _remat_ab(smi: str, case: str, cfg: t5.T5Config, max_d: int, pairs: int,
     ``torch.cuda.max_memory_allocated`` over them, one profiled step
     (device-busy ms, ``aten`` ops) and, with ``fwd_bwd``, the memory of a
     forward + backward alone (``_fwd_bwd_memory``)."""
-    tok, _, params, ctrl, batch = _step_env(cfg, max_d, pairs, n_neg)
+    tok, _, params, ctrl, batch = _step_env(cfg, max_d, pairs, n_neg, loss)
     runs, ref = {}, None
     for policy in ("off",) + policies:
         off = policy == "off"
         c = dataclasses.replace(cfg, remat=not off,
                                 remat_policy="full" if off else policy)
         tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
-        step = _make_step(c, tok, ctrl, tx, n_neg, **step_kw)
+        step = _make_step(c, tok, ctrl, tx, n_neg, loss, **step_kw)
         state = init_train_state(params, tx, ctrl.init("cuda"))
         gc.collect()  # the last policy's graphs (see _fwd_bwd_memory)
         torch.cuda.synchronize()
@@ -1980,6 +2010,396 @@ def phase_evaluate(smi: str, run_dir: str) -> dict:
             "int8_vs_bf16": fidelity}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the pacing curricula
+# ---------------------------------------------------------------------------
+
+CURRICULUM_STEPS = 6
+# phase 5's pools of 100: a level / contrast bump is 1 / (100 - 1)
+POOL_SLOTS = 99
+# eta and contrast: at random init a label token's CE is ~1.0-1.2 log V (a
+# CPU forward of this config: 0.89-1.21 log V), above any eta in (0, 1) at
+# the runner's auto ce_scale of log V, where eta's weights are all 0 and
+# eta never moves. 4 log V puts the scaled CE near 0.25-0.3, below eta0
+# 0.5: the weights are non-zero, eta moves, and contrast's ce < eta rate
+# clears its threshold.
+PACED_CE_SCALE = 4 * float(np.log(32128))
+# cli.train presets: phase 5's (t5-base, bf16, flash_v3 + fused_qkv,
+# dense, remat off, batch 16, L 188, pools of 100 over 2048 docs), 6
+# optimizer steps, one metrics row a step, and each curriculum's own
+# settings, chosen so that its difficulty moves within the 6 steps
+CURRICULUM_PRESET = dict(TRAIN_PRESET,
+                         total_steps=B_TRAIN * CURRICULUM_STEPS)
+CURRICULUM_CASES = {
+    # num_steps = int(0.667 * 96) = 64 examples: the ramp ends at step 4
+    "interp": dict(frac_interpolate=0.667),
+    "level": dict(heuristic_step_check=2, success_threshold=0.0),
+    "eta": dict(ce_scale=PACED_CE_SCALE),
+    "contrast": dict(rate_check=2, success_threshold=0.0,
+                     ce_scale=PACED_CE_SCALE),
+    "meta-cheap": dict(meta_lr=1e-2),
+    # dense (std refuses the kernels' routes), 2 steps
+    "meta-std": dict(meta_lr=1e-2, flash_v3=False, total_steps=B_TRAIN * 2),
+}
+# meta-std's v-gradient at t5-base in fp32: the oracle of
+# tests/test_train.py:201-257 (3 examples, lr 0.05, central differences
+# with eps 1e-2; rtol 5e-3, atol 2e-3)
+META_FD_B, META_FD_LR, META_FD_EPS = 3, 0.05, 1e-2
+META_FD_RTOL, META_FD_ATOL = 5e-3, 2e-3
+
+
+@contextlib.contextmanager
+def _row_times():
+    """The host clock after each metrics row is written. Both loops read a
+    step's metrics to the host (a synchronisation) to write its row, so
+    with one row a step the gaps between rows are step times."""
+    times = []
+    write = MetricWriter.write
+
+    def timed(self, record):
+        write(self, record)
+        times.append((time.perf_counter(), self.history[-1]))
+
+    MetricWriter.write = timed
+    try:
+        yield times
+    finally:
+        MetricWriter.write = write
+
+
+def _slot(rank: float) -> int:
+    return int(round(rank * POOL_SLOTS))
+
+
+def _index(difficulty) -> int:
+    """difficulty_to_index in fp32, as the corpus computes it."""
+    return int(np.floor(np.float32(difficulty) * np.float32(POOL_SLOTS)))
+
+
+def _level_replay(rates: list, check: int) -> list:
+    """LevelController's difficulty after each step, replayed on the host
+    in fp32 from each step's logged rate: at every ``check``-th step a
+    bump of 1 / 99 when the window's mean rate clears the threshold 0."""
+    d, out = np.float32(0.0), []
+    bump = np.float32(1.0 / POOL_SLOTS)
+    for k, _ in enumerate(rates, 1):
+        if k % check == 0 and np.mean(rates[k - check:k]) > 0.0:
+            d = min(np.float32(1.0), np.float32(d + bump))
+        out.append(float(d))
+    return out
+
+
+def _check_trajectory(name: str, rows: list, table) -> dict:
+    """Each controller's rule replayed on the host from the logged
+    metrics; raises where the logged difficulties or the pool slots the
+    batches drew disagree."""
+    got = [r.get("difficulty") for r in rows]
+    slots = [_slot(r["neg_rank"]) for r in rows if "neg_rank" in r]
+    if name == "interp":
+        # InterpController in fp32: start 0 + (1 - 0) * (16 k / 64)
+        want = [float(np.clip(np.float32(0.0) + np.float32(1.0)
+                              * (np.float32(B_TRAIN * k) / np.float32(64)),
+                              0.0, 1.0)) for k in range(1, len(rows) + 1)]
+    elif name == "level":
+        want = _level_replay([r["probs"] for r in rows], 2)
+    elif name == "contrast":
+        # the logged success_rate is the rate the window accumulates
+        want = _level_replay([r["success_rate"] for r in rows], 2)
+    elif name == "eta":
+        want = [min(max(r["eta"], 0.0), 1.0) for r in rows]
+    else:
+        # the table's rows j < steps moved into (0, 1), the rest stayed 1;
+        # each step logged the mean of the row it stored
+        steps = len(rows)
+        moved = table[:steps]
+        ok = bool(((moved > 0) & (moved < 1)).all()
+                  and (moved != 1).all()
+                  and (table[steps:] == 1).all())
+        means = moved.mean(dim=1).tolist()
+        err = max(abs(r["avg_weight"] - m) for r, m in zip(rows, means))
+        traj = dict(avg_weight=[r["avg_weight"] for r in rows],
+                    table_rows_moved=steps, table_rows=table.shape[0],
+                    avg_weight_vs_table=err)
+        if not (ok and err <= 1e-6):
+            raise AssertionError(f"{name} table: {traj}")
+        return traj
+    # the batch of step k drew the slot of the difficulty before it (0
+    # before step 1: eta's difficulty is 0 until its first update)
+    want_slots = [_index(d) for d in [0.0] + want[:-1]]
+    traj = dict(difficulty=got, replayed=want, slots=slots,
+                replayed_slots=want_slots)
+    if got != want or slots != want_slots or len(set(got)) < 2:
+        raise AssertionError(f"{name} trajectory: {traj}")
+    return traj
+
+
+def _curriculum_run(smi: str, name: str, per_step: dict) -> dict:
+    """cli.train.main with ``name``'s preset, counted and timed: launches
+    exactly ``per_step`` a step, finite losses, every weight moved, the
+    difficulty trajectory as the controller's rule replays it."""
+    preset = dict(CURRICULUM_PRESET, curriculum=name,
+                  **CURRICULUM_CASES[name])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "run")
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        with _row_times() as times:
+            summary = train_main(preset={**preset, "out_dir": out},
+                                 argv=[], device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        saved = torch.load(os.path.join(out, "final", CHECKPOINT_FILE),
+                           map_location="cuda", weights_only=True)
+    steps = summary["steps"]
+    rows = [r for _, r in times if "loss" in r]
+    ends = [t for t, r in times if "loss" in r]
+    step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    losses = [r["loss"] for r in rows]
+    init = t5.flatten_params(t5.init_params(
+        t5.T5Config.base(), torch.Generator(device="cuda").manual_seed(42),
+        "cuda"))
+    final = saved["params"]
+    changed = sum(not torch.equal(final[k], init[k]) for k in init)
+    finite = (len(losses) == steps and bool(np.isfinite(losses).all())
+              and all(torch.isfinite(v).all().item()
+                      for v in final.values()))
+    want = {k: n * steps for k, n in per_step.items()}
+    table = saved["curriculum"].get("table")
+    fields = dict(
+        case=name, steps=steps, seconds=seconds,
+        rows_per_step=B_TRAIN * 2, nvidia_smi=smi,
+        step_ms=step_ms, median_step_ms_2_on=statistics.median(step_ms),
+        launches=launches, expected_launches=want,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        losses=losses, finite=finite, leaves_changed=changed,
+        leaves=len(init),
+        trajectory=_check_trajectory(name, rows, table),
+        final_eta=rows[-1].get("eta"),
+    )
+    emit("curricula", **fields)
+    if not (launches == want and finite and changed == len(init)):
+        raise AssertionError(f"curricula {name}: {fields}")
+    return fields
+
+
+def _meta_ab(smi: str, case: str, variant: str, cfg_a: t5.T5Config,
+             cfg_b: t5.T5Config, want_a: dict, want_b: dict) -> dict:
+    """One meta step (``variant``) on ``cfg_a`` against ``cfg_b`` from the
+    same fp32 master weights, table and batch: the meta loop's first (table
+    row 0: pairs 0..15, each at its table weight 1) at the meta-cheap
+    preset's meta_lr. The v-gradient each step took, recovered from the
+    stored row as u = (v - logit(row)) / lr (cheap: (pce + nce) / B - 1 from
+    the frozen forwards; std: gv through the virtual step), is compared as
+    ||u_a - u_b|| / ||u_b||, the loss by its relative error and the AdamW
+    first moments leaf by leaf, at phase 5's tolerances, as ``_step_ab``
+    compares the pair step (lr(0) = 0: mu is 0.1 x the clipped gradient).
+    Launches must be exactly ``want_a`` and ``want_b``."""
+    meta_lr = CURRICULUM_CASES["meta-cheap"]["meta_lr"]
+    tok, dc, params, _, _ = _step_env(cfg_a, 160, B_TRAIN, 1, "pair")
+    table = MetaWeightTable(num_batches=8, batch_size=B_TRAIN)
+    v = table.lookup(table.init("cuda"), 0)
+    batch = dc.pair_batch(torch.arange(B_TRAIN, device="cuda"), v)
+    runs = {}
+    for label, cfg, want in (("a", cfg_a, want_a), ("b", cfg_b, want_b)):
+        tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+        step = make_meta_train_step(cfg, table, tx, lambda s: meta_lr,
+                                    variant=variant, rel_id=tok.true_id,
+                                    nrel_id=tok.false_id)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launches()
+        t0 = time.perf_counter()
+        state, metrics = step(init_train_state(params, tx,
+                                               table.init("cuda")), batch, 0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        used = {k: n - before[k] for k, n in _launches().items()}
+        row = table.lookup(state.curriculum, 0)
+        u = (v - torch.logit(row.double()).float()) / meta_lr
+        runs[label] = dict(loss=metrics["loss"].item(), row=row, u=u,
+                           mu=t5.flatten_params(state.opt_state.mu),
+                           used=used, want=want, ms=ms,
+                           peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        del state
+    a, b = runs["a"], runs["b"]
+    rel = {k: ((a["mu"][k] - b["mu"][k]).norm() / b["mu"][k].norm()).item()
+           for k in b["mu"] if b["mu"][k].norm() > 0}
+    worst = max(rel, key=rel.get)
+    u_rel = ((a["u"] - b["u"]).norm() / b["u"].norm()).item()
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    fields = dict(
+        case=case, variant=variant, nvidia_smi=smi, pairs=B_TRAIN,
+        meta_lr=meta_lr, loss_a=a["loss"], loss_b=b["loss"],
+        loss_rel_err=loss_rel, loss_tol=STEP_LOSS_RTOL,
+        v_grad_a=a["u"].tolist(), v_grad_rel_l2=u_rel,
+        row_max_abs_err=(a["row"] - b["row"]).abs().max().item(),
+        row_bitwise=torch.equal(a["row"], b["row"]),
+        grad_rel_l2_max=rel[worst], grad_rel_l2_worst_leaf=worst,
+        grad_rel_l2_median=statistics.median(rel.values()),
+        grad_tol=STEP_GRAD_REL_L2, grad_median_tol=STEP_GRAD_REL_L2_MEDIAN,
+        mu_leaves_bitwise=sum(torch.equal(a["mu"][k], b["mu"][k])
+                              for k in b["mu"]),
+        leaves=len(rel), step_ms_a=a["ms"], step_ms_b=b["ms"],
+        peak_mib_a=a["peak_mib"], peak_mib_b=b["peak_mib"],
+        launches_a=a["used"], launches_b=b["used"],
+        expected_launches_a=want_a, expected_launches_b=want_b,
+    )
+    emit("curricula", **fields)
+    if not (a["used"] == want_a and b["used"] == want_b
+            and loss_rel <= STEP_LOSS_RTOL and u_rel <= STEP_GRAD_REL_L2
+            and rel[worst] <= STEP_GRAD_REL_L2
+            and fields["grad_rel_l2_median"] <= STEP_GRAD_REL_L2_MEDIAN):
+        raise AssertionError(f"meta step {case}: {fields}")
+    return fields
+
+
+def _meta_std_fd_check(smi: str) -> dict:
+    """meta-std's v-gradient at t5-base in fp32 on the dense route: the
+    stored row after one step against sigmoid(v - lr * gv_fd), gv_fd the
+    central finite difference of F(v) = weighted_CE(theta - lr *
+    d/dtheta weighted_CE(theta, v), v) - sum(v) through real model
+    applies (tests/test_train.py:201-257's oracle, at its tolerances)."""
+    from pacednegatives_tpu_torch.ops.losses import token_ce
+
+    cfg = dataclasses.replace(t5.T5Config.base(), dtype=torch.float32)
+    tok, dc, params, _, _ = _step_env(cfg, 160, META_FD_B, 1, "pair")
+    batch = dc.pair_batch(torch.arange(META_FD_B, device="cuda"),
+                          torch.tensor(0.4, device="cuda"))
+    table = MetaWeightTable(num_batches=8, batch_size=META_FD_B)
+    tx = make_optimizer(1e-3, total_steps=4)
+    step = make_meta_train_step(cfg, table, tx, lambda s: META_FD_LR,
+                                variant="std", rel_id=tok.true_id,
+                                nrel_id=tok.false_id)
+
+    def per_example(p):
+        return [token_ce(t5.forward_logits(
+            p, cfg, batch[f"{s}_ids"], batch[f"{s}_labels"],
+            batch[f"{s}_mask"]), batch[f"{s}_labels"]) for s in ("pos", "neg")]
+
+    def F(v):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in t5.flatten_params(params).items()}
+        pce, nce = per_example(t5.unflatten_params(leaves))
+        g = torch.autograd.grad((pce * v).sum() / META_FD_B
+                                + (nce * v).sum() / META_FD_B,
+                                list(leaves.values()))
+        virt = t5.unflatten_params({k: p.detach() - META_FD_LR * gk for
+                                    (k, p), gk in zip(leaves.items(), g)})
+        with torch.no_grad():
+            pce, nce = per_example(virt)
+            return ((pce * v).sum() / META_FD_B + (nce * v).sum() / META_FD_B
+                    - v.sum()).item()
+
+    v0 = torch.ones(META_FD_B, device="cuda")
+    gv_fd = []
+    for i in range(META_FD_B):
+        e = torch.zeros(META_FD_B, device="cuda")
+        e[i] = META_FD_EPS
+        gv_fd.append((F(v0 + e) - F(v0 - e)) / (2 * META_FD_EPS))
+    gv_fd = np.asarray(gv_fd)
+    t0 = time.perf_counter()
+    new_state, _ = step(init_train_state(params, tx, table.init("cuda")),
+                        batch, 2)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got = table.lookup(new_state.curriculum, 2).cpu().numpy()
+    want = 1.0 / (1.0 + np.exp(-(1.0 - META_FD_LR * gv_fd)))
+    err = np.abs(got - want)
+    ok = bool((err <= META_FD_ATOL + META_FD_RTOL * np.abs(want)).all()
+              and np.abs(gv_fd).max() > 0.1)
+    fields = dict(check="meta_std_v_gradient_vs_finite_differences",
+                  config="t5-base fp32 dense", examples=META_FD_B,
+                  lr=META_FD_LR, eps=META_FD_EPS, gv_fd=gv_fd.tolist(),
+                  stored=got.tolist(), want=want.tolist(),
+                  max_abs_err=float(err.max()), rtol=META_FD_RTOL,
+                  atol=META_FD_ATOL, step_s=step_s, ok=ok, nvidia_smi=smi)
+    emit("curricula", **fields)
+    if not ok:
+        raise AssertionError(f"meta-std v-gradient: {fields}")
+    del new_state
+
+    # std refuses every route through a hand kernel's autograd Function:
+    # flash_v3 when the step is built; chunked flash_kernel in
+    # _FlashCore's backward, at a 128-aligned length (L 128), where the
+    # chunked core takes the kernel route (at L 188 it takes the plain,
+    # twice-differentiable one): K1 must have launched first
+    refused, k1 = {}, {}
+    _, _, params, _, batch = _step_env(_chunked_cfg(True), 100, META_FD_B, 1,
+                                       "pair")
+    state = init_train_state(params, tx, table.init("cuda"))
+    for label, c in (("flash_v3", _train_cfg(True)),
+                     ("chunked_flash_kernel", _chunked_cfg(True))):
+        before = flash_attention_forward.launches
+        try:
+            step = make_meta_train_step(c, table, tx, lambda s: META_FD_LR,
+                                        variant="std")
+            step(state, batch, 0)
+        except NotImplementedError as e:
+            refused[label] = str(e)
+        else:
+            raise AssertionError(f"meta-std ran on the {label} route")
+        k1[label] = flash_attention_forward.launches - before
+    emit("curricula", check="meta_std_refuses_kernel_routes",
+         prompt_len=batch["pos_ids"].shape[1], k1_launches=k1, **refused)
+    if not (batch["pos_ids"].shape[1] == 128 and k1["flash_v3"] == 0
+            and k1["chunked_flash_kernel"] > 0):
+        raise AssertionError(f"meta-std refusals: K1 launches {k1}")
+    return {**fields, "refused": sorted(refused)}
+
+
+def phase_curricula(smi: str) -> dict:
+    """Every pacing curriculum through ``cli.train.main`` at t5-base (phase
+    5's preset): the pair loss (interp, level, eta, contrast) runs one
+    forward over [pos; neg], 32 rows, a step; meta-cheap a frozen pos + neg
+    forward, then a main pos + neg forward and backward, 16 rows each;
+    meta-std the dense route, no kernel. Then one pair step and one
+    meta-cheap step with the kernels against the dense route, one meta-std
+    step under ``dots_nobatch`` against remat off, and meta-std's
+    v-gradient on the card."""
+    layers = t5.T5Config.base().num_layers
+    emit("curricula", config="t5-base", vocab=32128, dtype="bfloat16",
+         flash_v3=True, fused_qkv=True, batch=B_TRAIN, prompt_len=L_SERVE,
+         steps=CURRICULUM_STEPS, cases=CURRICULUM_CASES)
+    # the pair step: K3 and K4 once per encoder layer; GEMMs 2 + 1 a layer
+    pair = _per_step(attention=layers, attention_bwd=layers,
+                     gemm=3 * layers)
+    # meta-cheap: four forwards (K3 4 x 12), two backwards (K4 2 x 12)
+    cheap = _per_step(attention=4 * layers, attention_bwd=2 * layers,
+                      gemm=8 * layers + 2 * layers)
+    runs = {name: _curriculum_run(smi, name, per) for name, per in (
+        ("interp", pair), ("level", pair), ("eta", pair),
+        ("contrast", pair), ("meta-cheap", cheap), ("meta-std", _per_step()))}
+    step1 = _step_ab("step1_pair_flash_v3_vs_dense", _train_cfg(True),
+                     _train_cfg(False), 160, pair,
+                     (STEP_LOSS_RTOL, STEP_GRAD_REL_L2,
+                      STEP_GRAD_REL_L2_MEDIAN), n_neg=1, loss="pair")
+    # the pair step alone, outside the CLI's loop: step ms, device-busy ms
+    # of a profiled step, aten ops (phase 5's L188 remat-off case is the
+    # LCE step's, 128 rows)
+    profile = _remat_ab(smi, "pair_L188", _train_cfg(True), 160, B_TRAIN, 1,
+                        (), pair, pair, fwd_bwd=False, loss="pair")["off"]
+    # meta-cheap's forwards on the fp32 masters, q|k|v concatenated on each
+    # call: K3 / K4 against the dense route
+    cheap_ab = _meta_ab(smi, "meta_cheap_flash_v3_vs_dense", "cheap",
+                        _train_cfg(True), _train_cfg(False), cheap,
+                        _per_step())
+    # meta-std under RunConfig's default remat (the selective checkpoint
+    # saving the projections' products) against remat off, dense
+    std_remat = _meta_ab(
+        smi, "meta_std_dots_nobatch_vs_remat_off", "std",
+        dataclasses.replace(_train_cfg(False), remat=True,
+                            remat_policy="dots_nobatch"),
+        _train_cfg(False), _per_step(), _per_step())
+    fd = _meta_std_fd_check(smi)
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in COUNTED}
+    return {"runs": runs, "step1": step1, "profile": profile,
+            "meta_cheap_ab": cheap_ab, "meta_std_remat": std_remat,
+            "meta_std_fd": fd, "launches": launches}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -2013,6 +2433,7 @@ def main() -> int:
         f512 = phase_fused512(smi)
         dn = phase_dense(smi)
         ev = phase_evaluate(smi, run_dir)
+    cu = phase_curricula(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -2023,7 +2444,8 @@ def main() -> int:
              "online": dn["online"]["launches"],
              "build_pools": dn["build_pools"]["launches"],
              "evaluate": ev["bf16"]["launches"],
-             "evaluate_int8": ev["int8"]["launches"]}
+             "evaluate_int8": ev["int8"]["launches"],
+             "curricula": cu["launches"]}
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -2117,6 +2539,21 @@ def main() -> int:
         "evaluate_scores_vs_cpu": {label: r["max_abs_err"]
                                    for label, r in ev["checks"].items()},
         "evaluate_int8_vs_bf16": ev["int8_vs_bf16"],
+        "curricula": {
+            **{name: {key: r[key] for key in (
+                "median_step_ms_2_on", "launches_per_step")}
+               for name, r in cu["runs"].items()},
+            "pair_step_alone": {key: cu["profile"][key] for key in (
+                "step_ms", "busy_ms", "idle_share", "aten_ops_per_step",
+                "peak_mib")},
+            "step1_pair_loss_rel_err": cu["step1"]["loss_rel_err"],
+            "step1_pair_grad_rel_l2_max": cu["step1"]["grad_rel_l2_max"],
+            **{name: {key: cu[name][key] for key in (
+                "loss_rel_err", "v_grad_rel_l2", "grad_rel_l2_max",
+                "grad_rel_l2_median", "row_bitwise", "step_ms_a",
+                "step_ms_b")}
+               for name in ("meta_cheap_ab", "meta_std_remat")},
+            "meta_std_fd_max_abs_err": cu["meta_std_fd"]["max_abs_err"]},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

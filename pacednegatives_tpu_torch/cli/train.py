@@ -3,7 +3,11 @@ lce --model base --flash_v3 true --fused_qkv true ...``.
 
 The options are the fields of ``train.runner.RunConfig`` (the JAX CLI's),
 plus ``--device`` (default cuda; there is no fallback to the CPU).
-``cli.train_lce`` presets the curriculum as the reference's train_lce.py.
+``--curriculum`` is one of interp, level, eta, contrast, lce, meta-cheap
+and meta-std. The presets set it as the reference's entry points do:
+``cli.train_lce`` (train_lce.py), ``cli.train_eta`` (train/eta.py),
+``cli.train_level`` (train/level.py), ``cli.train_interp``
+(train/interpolate.py) and ``cli.train_std`` (train/std.py, meta-std).
 """
 
 from __future__ import annotations

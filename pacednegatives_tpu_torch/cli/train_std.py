@@ -1,0 +1,6 @@
+"""Entry point mirroring the reference train/std.py."""
+
+from pacednegatives_tpu_torch.cli.train import main
+
+if __name__ == "__main__":
+    main(preset={"curriculum": "meta-std"})

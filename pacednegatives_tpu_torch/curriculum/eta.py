@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pacednegatives_tpu_torch.curriculum.base import StepSignals
+from pacednegatives_tpu_torch.curriculum.base import StepSignals, f32, mean
 from pacednegatives_tpu_torch.ops.losses import eta_weight, self_paced_objective
 from pacednegatives_tpu_torch.optim import Adam, AdamState, apply_updates
 
@@ -122,10 +122,16 @@ class EtaController:
     def meta_loss(self, state: EtaState, signals: StepSignals) -> torch.Tensor:
         return self._objective(state.eta, signals).detach()
 
+    def below(self, state: EtaState, signals: StepSignals) -> torch.Tensor:
+        """1.0 where the scaled CE is below eta, else 0.0 (a true division
+        by ``ce_scale`` on every device)."""
+        scaled = signals.ce.detach() / f32(self.ce_scale, state.eta.device)
+        return (scaled < state.eta).float()
+
     def success_rate(self, state: EtaState, signals: StepSignals) -> torch.Tensor:
         """Fraction of examples whose (scaled) CE is below the current eta
         (old/eta_bound.py:57-58, against the post-update eta)."""
-        return (signals.ce / self.ce_scale < state.eta).float().mean()
+        return mean(self.below(state, signals))
 
     def metrics(self, state: EtaState) -> dict[str, torch.Tensor]:
         return {"eta": state.eta, "difficulty": self.difficulty(state)}

@@ -16,9 +16,10 @@ are, and the port's ``encode`` / ``decode`` read each of them:
 the optimizer's state (optax's AdamW moments ``mu`` / ``nu`` and ``count``,
 mu in fp32 or bf16; the JAX package's ``FactoredAdamState``; either inside
 ``optax.MultiStepsState`` with its counters and accumulated gradients), and
-the curriculum's ``EtaState`` with its own optimizer state, so a run the
-JAX package started can continue in the port, and tests can start both
-packages from one state.
+the curriculum's state, whichever controller made it (``EtaState`` with
+its own optimizer state, ``InterpState``, ``LevelState``, ``ContrastState``
+or the meta table's ``MetaState``), so a run the JAX package started can
+continue in the port, and tests can start both packages from one state.
 
 Nothing here imports JAX: trees come in as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side).
@@ -29,7 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pacednegatives_tpu_torch.curriculum.eta import EtaState
+from pacednegatives_tpu_torch.curriculum import (
+    ContrastState,
+    EtaState,
+    InterpState,
+    LevelState,
+    MetaState,
+)
 from pacednegatives_tpu_torch.models.t5 import (
     T5Config,
     flatten_params,
@@ -125,24 +132,50 @@ def _opt_state(opt_state, device):
     return AdamState(count=count, mu=tree(adam.mu), nu=tree(adam.nu))
 
 
+def _scalar(a, device, dtype) -> torch.Tensor:
+    return _to_tensor(a).to(device=device, dtype=dtype)
+
+
+def curriculum_from_jax(cur, device: torch.device | str = "cpu"):
+    """A JAX curriculum state (numpy leaves) -> the port's, told apart by
+    its fields: ``EtaState`` (eta, its optimizer state; the port counts
+    steps in a Python int), ``InterpState`` and ``LevelState`` (fp32 and
+    int32 scalars), ``ContrastState`` (an eta and a level state) and
+    ``MetaState`` (the fp32 weight table)."""
+    fields = tuple(getattr(cur, "_fields", ()))
+    if fields == ("eta", "opt_state", "step"):
+        return EtaState(eta=_scalar(cur.eta, device, torch.float32),
+                        opt_state=_opt_state(cur.opt_state, device),
+                        step=int(np.asarray(cur.step)))
+    if fields == ("step",):
+        return InterpState(step=_scalar(cur.step, device, torch.int32))
+    if fields == LevelState._fields:
+        return LevelState(
+            difficulty=_scalar(cur.difficulty, device, torch.float32),
+            success_sum=_scalar(cur.success_sum, device, torch.float32),
+            success_count=_scalar(cur.success_count, device, torch.int32),
+            step=_scalar(cur.step, device, torch.int32))
+    if fields == ContrastState._fields:
+        return ContrastState(eta=curriculum_from_jax(cur.eta, device),
+                             level=curriculum_from_jax(cur.level, device))
+    if fields == MetaState._fields:
+        return MetaState(table=_scalar(cur.table, device, torch.float32))
+    raise ValueError(f"unknown curriculum state {type(cur).__name__} with "
+                     f"fields {fields}")
+
+
 def train_state_from_jax(state, *, seed: int = 42,
                          device: torch.device | str = "cpu"):
     """A JAX ``TrainState`` with numpy leaves (its ``key`` may be anything:
     the port's negatives and dropout seeds come from ``torch.Generator``s
-    seeded with ``seed``) -> the port's ``TrainState`` on ``device``. The
-    curriculum must be an ``EtaState``."""
+    seeded with ``seed``) -> the port's ``TrainState`` on ``device``, its
+    curriculum state by ``curriculum_from_jax``."""
     from pacednegatives_tpu_torch.train.state import TrainState
 
-    cur = state.curriculum
-    curriculum = EtaState(
-        eta=_to_tensor(cur.eta).to(device),
-        opt_state=_opt_state(cur.opt_state, device),
-        step=int(np.asarray(cur.step)),
-    )
     return TrainState(
         params=params_from_jax(state.params, device),
         opt_state=_opt_state(state.opt_state, device),
-        curriculum=curriculum,
+        curriculum=curriculum_from_jax(state.curriculum, device),
         step=int(np.asarray(state.step)),
         generator=torch.Generator(device=device).manual_seed(seed),
         dropout_generator=torch.Generator().manual_seed(seed),

@@ -743,7 +743,9 @@ class _FlashCore(torch.autograd.Function):
     ``custom_vjp`` ``_flash_core`` (t5.py:929-988, 1121). ``impl`` is
     "plain" (t5.py's XLA route) or "kernel" (K1 forward, K2b / K2a
     backward). Saves (q, k, v, biases, m, l, out), with out in
-    ``res_dtype``; returns out (B, H, Lq, dk) fp32."""
+    ``res_dtype``; returns out (B, H, Lq, dk) fp32. The plain route is
+    twice differentiable; the kernel route's backward raises under
+    ``create_graph=True``."""
 
     @staticmethod
     def forward(ctx, C, impl, res_dtype, q, k, v, shared, per_batch):
@@ -759,6 +761,15 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.impl == "kernel" and torch.is_grad_enabled():
+            # create_graph=True: the kernels' outputs carry no autograd
+            # history, so a gradient through this gradient would silently
+            # drop terms; the plain route's backward is torch ops and
+            # differentiates again
+            raise NotImplementedError(
+                "the attention-core kernels (K1 / K2b / K2a) have no double "
+                "backward: a gradient through their gradient "
+                "(create_graph=True) is not supported; use flash_kernel=False")
         res = ctx.saved_tensors
         need_shared, need_per_batch = ctx.needs_input_grad[6:8]
         if ctx.impl == "kernel":

@@ -143,7 +143,8 @@ def v3_backward_plain(x, wqkv, pos3, key_mask, m, l, d_attn):
 
 
 class FusedSelfAttention(torch.autograd.Function):
-    """y = attn(x . Wqkv) . Wo with K3 forward and K4 backward."""
+    """y = attn(x . Wqkv) . Wo with K3 forward and K4 backward. Once
+    differentiable: its backward raises under ``create_graph=True``."""
 
     @staticmethod
     def forward(ctx, x, wqkv, wo, pos3, key_mask):
@@ -153,6 +154,15 @@ class FusedSelfAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        if torch.is_grad_enabled():
+            # create_graph=True: K4's outputs carry no autograd history, so
+            # a gradient through this gradient would silently lose every
+            # path through d_qkv (and the CPU route writes into out=
+            # buffers); the JAX package fails in pallas_call's JVP rule
+            raise NotImplementedError(
+                "FusedSelfAttention (K3 / K4) has no double backward: a "
+                "gradient through its gradient (create_graph=True) is not "
+                "supported; use the dense route (flash_v3=False)")
         x, wqkv, wo, pos3, key_mask, m, l = ctx.saved_tensors
         B, L, D = x.shape
         inner = wo.shape[0]

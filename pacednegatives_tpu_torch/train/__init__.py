@@ -1,5 +1,6 @@
-"""Training: state and optimizer, the LCE train step, the loop with
-checkpoints, and the runner (the port of train/)."""
+"""Training: state and optimizer, the pair / LCE train step and the
+meta-weight step, the loop with checkpoints, and the runner (the port of
+train/)."""
 
 from pacednegatives_tpu_torch.train.loop import (
     MetricWriter,
@@ -16,6 +17,7 @@ from pacednegatives_tpu_torch.train.state import (
 )
 from pacednegatives_tpu_torch.train.step import (
     make_fused_step,
+    make_meta_train_step,
     make_train_step,
 )
 
@@ -26,6 +28,7 @@ __all__ = [
     "init_train_state",
     "latest_checkpoint",
     "make_fused_step",
+    "make_meta_train_step",
     "make_optimizer",
     "make_train_step",
     "pair_index_stream",

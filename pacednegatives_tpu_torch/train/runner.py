@@ -1,21 +1,26 @@
 """One config -> one training run: the port of train/runner.py.
 
 ``RunConfig`` has the JAX package's fields and defaults, and ``run`` runs
-them as the JAX runner does: the LCE curriculum (``curriculum="lce"``,
-``scored_pool=0``) with AdamW, ``grad_accum_steps`` optimizer steps
-accumulated by MultiSteps, on static pools or with online negative mining
-from a dense index (``mining="online"``: train/online.py, K6 over an int8
-index with ``quantize_index``); dense attention with the fused
-self-attention kernels (``flash_v3``), or chunked attention with the
-attention-core kernels (``flash_kernel``) and either residual dtype; an
-fp32 or bf16 gradient-accumulation carry; ``remat`` with each of its
-policies, ``dropout`` and ``ffn_custom_vjp``. The fields of ``_UNPORTED``
-raise ``NotImplementedError`` naming their ROADMAP item at any other value:
-nothing is silently ignored. ``microbatch_unroll`` unrolls the JAX
-package's lax.scan and changes no result; the port's microbatch loop is a
-Python loop, so both values run the same code. ``run`` takes an explicit
-device and never falls back from CUDA to the CPU. ``load_run`` reloads a
-run directory written by ``run``.
+them as the JAX runner does, for every curriculum: ``interp``, ``level``,
+``eta`` and ``contrast`` (the pair loss, one negative an example: the pool
+slot the difficulty names, or one binomial draw with online mining),
+``lce`` (n sampled negatives) and the bilevel meta-weights ``meta-cheap``
+and ``meta-std`` (their own loop over the weight table's rows). With
+AdamW, ``grad_accum_steps`` optimizer steps accumulated by MultiSteps, on
+static pools or with online negative mining from a dense index
+(``mining="online"``: train/online.py, K6 over an int8 index with
+``quantize_index``); dense attention with the fused self-attention kernels
+(``flash_v3``), or chunked attention with the attention-core kernels
+(``flash_kernel``) and either residual dtype; an fp32 or bf16
+gradient-accumulation carry; ``remat`` with each of its policies,
+``dropout`` and ``ffn_custom_vjp``. The fields of ``_UNPORTED`` raise
+``NotImplementedError`` naming their ROADMAP item at any other value, and
+the settings the meta loop does not read raise ``ValueError`` there
+(``_META_UNREAD``): nothing is silently ignored. ``microbatch_unroll``
+unrolls the JAX package's lax.scan and changes no result; the port's
+microbatch loop is a Python loop, so both values run the same code.
+``run`` takes an explicit device and never falls back from CUDA to the
+CPU. ``load_run`` reloads a run directory written by ``run``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -75,7 +81,7 @@ class RunConfig:
     # (see models/t5.T5Config.ffn_custom_vjp)
     ffn_custom_vjp: bool = False
     dropout: bool = False
-    # curriculum: interp | level | eta | lce | meta-cheap | meta-std
+    # curriculum: interp | level | eta | contrast | lce | meta-cheap | meta-std
     curriculum: str = "lce"
     # shared hparams (reference defaults: train/*.py)
     total_steps: int = 100_000
@@ -174,7 +180,6 @@ class RunConfig:
 # (field, value that runs here, ROADMAP item) for every field whose other
 # values this slice does not port
 _UNPORTED = (
-    ("curriculum", "lce", "slice C (interp, level, eta, contrast, meta)"),
     ("scored_pool", 0, "slice P (model-in-the-loop negative selection)"),
     ("scan_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("stacked_layers", False, "'Not carried over' (lax.scan over layers)"),
@@ -247,9 +252,10 @@ def _build_model(cfg: RunConfig, tok, device: torch.device):
     return init_params(mcfg, gen, device), mcfg
 
 
-def _build_data(cfg: RunConfig, tok, device: torch.device):
-    from pacednegatives_tpu_torch.data import TextCorpus, TokenizedStore
-    from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
+def _build_corpus(cfg: RunConfig):
+    """(TextCorpus, TripletStore) of the config: TSVs and a triples file,
+    or the synthetic corpus."""
+    from pacednegatives_tpu_torch.data import TextCorpus
     from pacednegatives_tpu_torch.data.triples import (
         TripletStore,
         load_triples,
@@ -267,10 +273,6 @@ def _build_data(cfg: RunConfig, tok, device: torch.device):
             num_docs=cfg.synthetic_docs, num_queries=cfg.synthetic_queries,
             seed=cfg.seed,
         )
-    store = TokenizedStore.build(
-        corpus, tok, max_q_tokens=cfg.max_q_tokens,
-        max_d_tokens=cfg.max_d_tokens,
-    )
     if cfg.triples == "synthetic":
         triples = TripletStore.synthetic(
             corpus, n_pairs=cfg.synthetic_pairs, n_neg=cfg.synthetic_pool,
@@ -281,6 +283,18 @@ def _build_data(cfg: RunConfig, tok, device: torch.device):
             load_triples(cfg.triples), corpus,
             n_neg=cfg.n_neg_pool, order=cfg.pool_order,
         )
+    return corpus, triples
+
+
+def _build_data(cfg: RunConfig, tok, device: torch.device):
+    from pacednegatives_tpu_torch.data import TokenizedStore
+    from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
+
+    corpus, triples = _build_corpus(cfg)
+    store = TokenizedStore.build(
+        corpus, tok, max_q_tokens=cfg.max_q_tokens,
+        max_d_tokens=cfg.max_d_tokens,
+    )
     return corpus, store, triples, DeviceCorpus.build(
         store, triples, device=device, use_max=cfg.use_max,
         packed=cfg.packed_assembly,
@@ -300,31 +314,81 @@ def _opt_steps(cfg: RunConfig) -> tuple[int, int]:
 
 def _resolve_ce_scale(cfg: RunConfig, vocab_size: int) -> float:
     """Auto ce_scale (None): 1.0 for pretrained checkpoints; for random
-    init, log(V) times the width of the LCE loss the weights act on."""
+    init, the CE plateau of a uniform softmax, log(V), times the width of
+    the loss the weights act on: (pce + nce) / 2 for the pair curricula
+    (~log V), pce + mean/sum(nce over n) for LCE (~2 / ~(1+n) log V)."""
     if cfg.ce_scale is not None:
         return float(cfg.ce_scale)
     if cfg.model not in ("tiny", "small", "base"):
         return 1.0
     logv = float(np.log(max(vocab_size, 2)))
-    return (2.0 if cfg.use_mean else 1.0 + cfg.n) * logv
+    if cfg.curriculum == "lce":
+        return (2.0 if cfg.use_mean else 1.0 + cfg.n) * logv
+    return logv
 
 
-def _build_controller(cfg: RunConfig, vocab_size: int):
-    from pacednegatives_tpu_torch.curriculum import EtaController
+def _build_controller(cfg: RunConfig, triples, vocab_size: int = 0):
+    from pacednegatives_tpu_torch.curriculum import (
+        ContrastController,
+        EtaController,
+        InterpController,
+        LevelController,
+    )
 
     meta_lr = cfg.meta_lr if cfg.meta_lr is not None else cfg.lr
     opt_steps, warmup = _opt_steps(cfg)
+    ce_scale = _resolve_ce_scale(cfg, vocab_size)
     milestones = (
         ((opt_steps // 4, 0.1), (opt_steps // 2, 0.1))
         if cfg.meta_lr_milestone_decay
         else ()
     )
-    return EtaController(
-        eta0=cfg.eta0, meta_lr=meta_lr,
-        warmup_steps=warmup, total_steps=opt_steps,
-        kind="lce", objective="weighted_ce", optimizer="adamw",
-        clamp=False, ce_scale=_resolve_ce_scale(cfg, vocab_size),
-        milestones=milestones,
+    if cfg.curriculum == "interp":
+        return InterpController(
+            start=cfg.start_difficulty, end=cfg.max_difficulty,
+            num_steps=int(cfg.frac_interpolate * cfg.total_steps),
+            batch_size=cfg.batch_size,
+        )
+    if cfg.curriculum == "level":
+        # the reference bumps by 1/n_neg with n_neg = len(pool) - 1
+        # (dataloader.py:18, old/levels.py:77)
+        return LevelController(
+            n_neg=max(triples.n_neg - 1, 1), threshold=cfg.success_threshold,
+            check_every=cfg.heuristic_step_check,
+        )
+    if cfg.curriculum == "eta":
+        return EtaController(
+            eta0=cfg.eta0, meta_lr=meta_lr,
+            warmup_steps=warmup, total_steps=opt_steps,
+            kind="eta", objective="self_paced",
+            eta_min=cfg.eta_min, eta_max=cfg.eta_max,
+            ce_scale=ce_scale, milestones=milestones,
+        )
+    if cfg.curriculum == "lce":
+        return EtaController(
+            eta0=cfg.eta0, meta_lr=meta_lr,
+            warmup_steps=warmup, total_steps=opt_steps,
+            kind="lce", objective="weighted_ce", optimizer="adamw",
+            clamp=False, ce_scale=ce_scale, milestones=milestones,
+        )
+    if cfg.curriculum == "contrast":
+        return ContrastController(
+            eta0=cfg.eta0, meta_lr=meta_lr,
+            warmup_steps=warmup, total_steps=opt_steps,
+            eta_min=cfg.eta_min, eta_max=cfg.eta_max,
+            n_neg=max(triples.n_neg - 1, 1), threshold=cfg.success_threshold,
+            rate_check=cfg.rate_check,
+            ce_scale=ce_scale, milestones=milestones,
+        )
+    raise ValueError(f"unknown curriculum {cfg.curriculum}")
+
+
+def _meta_table(cfg: RunConfig, triples):
+    from pacednegatives_tpu_torch.curriculum import MetaWeightTable
+
+    return MetaWeightTable(
+        num_batches=max(len(triples) // cfg.batch_size, 1),
+        batch_size=cfg.batch_size,
     )
 
 
@@ -394,9 +458,13 @@ def load_run(run_dir: str, checkpoint: str = "final",
     opt_steps, warmup = _opt_steps(cfg)
     tx = make_optimizer(cfg.lr, opt_steps, warmup, grad_clip=cfg.grad_clip,
                         grad_accum_steps=cfg.grad_accum_steps)
-    template = init_train_state(
-        params, tx, _build_controller(cfg, tok.vocab_size).init(device),
-        seed=cfg.seed)
+    _, triples = _build_corpus(cfg)
+    if cfg.curriculum.startswith("meta"):
+        curriculum = _meta_table(cfg, triples).init(device)
+    else:
+        curriculum = _build_controller(cfg, triples,
+                                       tok.vocab_size).init(device)
+    template = init_train_state(params, tx, curriculum, seed=cfg.seed)
     state = restore_checkpoint(os.path.join(run_dir, checkpoint), template,
                                generators=False)
     return state.params, mcfg, tok, cfg
@@ -418,22 +486,79 @@ def _maybe_resume(cfg: RunConfig, state):
     return state
 
 
+# (field, default) of the settings the JAX runner's meta branch never
+# reads (train/runner.py:488-534): the port refuses any other value there
+_META_UNREAD = (
+    ("mining", "static"),
+    ("microbatches", 1),
+    ("dropout", False),
+    ("grad_accum_dtype", "fp32"),
+    ("eval_every_steps", 0),
+    ("checkpoint_every_steps", 0),
+    ("shuffle", False),
+    ("log_every_chunks", 1),
+)
+
+
+def _check_meta(cfg: RunConfig) -> str:
+    """The meta variant ("cheap" or "std"); ValueError for a setting the
+    meta loop would not read."""
+    variant = cfg.curriculum.partition("-")[2]
+    if variant not in ("cheap", "std"):
+        raise ValueError(f"unknown curriculum {cfg.curriculum}")
+    for name, default in _META_UNREAD:
+        if getattr(cfg, name) != default:
+            raise ValueError(
+                f"{name}={getattr(cfg, name)!r} with curriculum="
+                f"{cfg.curriculum!r}: the meta loop does not read it (the "
+                f"JAX runner ignores it there); use {name}={default!r}"
+            )
+    return variant
+
+
+def _run_meta(cfg: RunConfig, variant: str, tok, triples, dc, mcfg, params,
+              tx, writer, steps: int, warmup: int, device: torch.device):
+    """The meta-weight loop (train/runner.py:488-534): batch j's pairs are
+    rows (j * B + arange(B)) % num_pairs, each drawn at its own table
+    weight; one metrics row a chunk with the chunk's last values, then
+    {"step", "time"}."""
+    from pacednegatives_tpu_torch.curriculum import linear_warmup_decay
+    from pacednegatives_tpu_torch.train.state import init_train_state
+    from pacednegatives_tpu_torch.train.step import make_meta_train_step
+
+    meta_lr = cfg.meta_lr if cfg.meta_lr is not None else cfg.lr
+    table = _meta_table(cfg, triples)
+    step = make_meta_train_step(
+        mcfg, table, tx, linear_warmup_decay(meta_lr, warmup, steps),
+        variant=variant, rel_id=tok.true_id, nrel_id=tok.false_id,
+    )
+    state = init_train_state(params, tx, table.init(device), seed=cfg.seed)
+    state = _maybe_resume(cfg, state)
+    offsets = torch.arange(cfg.batch_size, device=device)
+    t0 = time.time()
+    done = int(state.step)
+    while done < steps:
+        k = min(cfg.chunk_size, steps - done)
+        for t in range(k):
+            j = (done + t) % table.num_batches
+            pair_idx = (j * cfg.batch_size + offsets) % dc.num_pairs
+            batch = dc.pair_batch(pair_idx, table.lookup(state.curriculum, j))
+            state, metrics = step(state, batch, j)
+        done += k
+        writer.write({"step": done, **metrics})
+        writer.flush()
+    writer.write({"step": steps, "time": time.time() - t0})
+    return state
+
+
 def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
     """Execute a training run on ``device``; returns the summary dict
     {"steps", "final_loss", "out_dir"}."""
     from pacednegatives_tpu_torch.train.loop import (
         MetricWriter,
-        TrainLoop,
         save_checkpoint,
     )
-    from pacednegatives_tpu_torch.train.state import (
-        init_train_state,
-        make_optimizer,
-    )
-    from pacednegatives_tpu_torch.train.step import (
-        make_fused_step,
-        make_train_step,
-    )
+    from pacednegatives_tpu_torch.train.state import make_optimizer
 
     if cfg.scored_pool > 0 and cfg.mining == "online":
         raise ValueError(
@@ -446,6 +571,8 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
             f"got {cfg.scored_pool_dtype!r}"
         )
     _check_ported(cfg)
+    meta = cfg.curriculum.startswith("meta")
+    variant = _check_meta(cfg) if meta else None
     device = _device(device)
 
     os.makedirs(cfg.out_dir, exist_ok=True)
@@ -465,10 +592,41 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
         wandb_project=cfg.wandb_project,
         wandb_config=dataclasses.asdict(cfg),
     )
-    controller = _build_controller(cfg, tok.vocab_size)
-    writer.write({"step": 0, "ce_scale": float(controller.ce_scale)})
+    if meta:
+        state = _run_meta(cfg, variant, tok, triples, dc, mcfg, params, tx,
+                          writer, opt_steps, warmup_opt, device)
+    else:
+        state = _run_paced(cfg, tok, store, triples, dc, mcfg, params, tx,
+                           writer, opt_steps, device)
+    save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
+    writer.close()
+    last = [h for h in writer.history if "loss" in h]
+    return {
+        "steps": int(state.step),
+        "final_loss": float(last[-1]["loss"]) if last else None,
+        "out_dir": cfg.out_dir,
+    }
+
+
+def _run_paced(cfg: RunConfig, tok, store, triples, dc, mcfg, params, tx,
+               writer, steps: int, device: torch.device):
+    """Every curriculum but meta: the controller, the pair (or LCE) step
+    and the training loop, on static pools or with online mining."""
+    from pacednegatives_tpu_torch.train.loop import TrainLoop
+    from pacednegatives_tpu_torch.train.state import init_train_state
+    from pacednegatives_tpu_torch.train.step import (
+        make_fused_step,
+        make_train_step,
+    )
+
+    controller = _build_controller(cfg, triples, tok.vocab_size)
+    if hasattr(controller, "ce_scale"):
+        # the resolved normalization, so that curves are interpretable
+        writer.write({"step": 0, "ce_scale": float(controller.ce_scale)})
+    loss_kind = "lce" if cfg.curriculum == "lce" else "pair"
+    n = cfg.n if loss_kind == "lce" else 1
     step = make_train_step(
-        mcfg, controller, tx, loss="lce", n_neg_per_example=cfg.n,
+        mcfg, controller, tx, loss=loss_kind, n_neg_per_example=n,
         use_mean=cfg.use_mean, rel_id=tok.true_id, nrel_id=tok.false_id,
         label_grouping=cfg.label_grouping, dropout=cfg.dropout,
         microbatches=cfg.microbatches,
@@ -506,16 +664,21 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
                                     quantize=cfg.quantize_index)
         loop = OnlineMiningLoop(
             fused_step=make_online_fused_step(dc, step, controller, mcfg,
-                                              mining, n_neg_per_example=cfg.n),
+                                              mining, n_neg_per_example=n),
             refresh_fn=make_refresh_fn(dc, mcfg, mining),
             refresh_every=cfg.refresh_every,
             checkpoint_index=cfg.checkpoint_index,
             **common,
         )
     elif cfg.mining == "static":
+        if cfg.scored_pool > 0 and loss_kind != "lce":
+            raise ValueError(
+                "scored_pool requires an lce-family curriculum "
+                f"(n sampled negatives); got {cfg.curriculum!r}"
+            )
         loop = TrainLoop(
-            fused_step=make_fused_step(dc, step, controller, loss="lce",
-                                       n_neg_per_example=cfg.n),
+            fused_step=make_fused_step(dc, step, controller, loss=loss_kind,
+                                       n_neg_per_example=n),
             shuffle=cfg.shuffle,
             log_every_chunks=cfg.log_every_chunks,
             **common,
@@ -523,12 +686,4 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
     else:
         raise ValueError(f"mining must be 'static' or 'online', "
                          f"got {cfg.mining!r}")
-    state = loop.run(state, opt_steps, writer)
-    save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
-    writer.close()
-    last = [h for h in writer.history if "loss" in h]
-    return {
-        "steps": int(state.step),
-        "final_loss": float(last[-1]["loss"]) if last else None,
-        "out_dir": cfg.out_dir,
-    }
+    return loop.run(state, steps, writer)

@@ -1,15 +1,21 @@
-"""The LCE train step: the port of train/step.py.
+"""The train steps: the port of train/step.py.
 
-One step: compute the position biases once from the two rel_bias tables,
-cast the big weights to the compute dtype once (and concatenate q|k|v once,
-with fused_qkv), one teacher-forced forward over [positives; negatives] per
-microbatch and its backward by autograd, gradient accumulation over the
-microbatches in ``grad_accum_dtype``, the biases' accumulated cotangent
-folded back into the tables through the gather's backward, the optimizer,
-then the curriculum update from the same pass's CE values
-(step.py:145-330). With ``dropout``, each microbatch draws its masks from
-its own seed, taken on the host from ``state.dropout_generator`` (the JAX
-step splits its key over the microbatches, step.py:258).
+``make_train_step``: compute the position biases once from the two rel_bias
+tables, cast the big weights to the compute dtype once (and concatenate
+q|k|v once, with fused_qkv), one teacher-forced forward over [positives;
+negatives] per microbatch and its backward by autograd, gradient
+accumulation over the microbatches in ``grad_accum_dtype``, the biases'
+accumulated cotangent folded back into the tables through the gather's
+backward, the optimizer, then the curriculum update from the same pass's
+CE values (step.py:145-330), for the pair loss (the interp, level, eta and
+contrast curricula: one negative an example, per-token signals) and the
+LCE loss (n negatives). With ``dropout``, each microbatch draws its masks
+from its own seed, taken on the host from ``state.dropout_generator`` (the
+JAX step splits its key over the microbatches, step.py:258).
+
+``make_meta_train_step``: the bilevel per-example weight table (NewWrapper
+``cheap``, StdWrapper ``std``: a gradient through a virtual SGD step,
+``torch.autograd.grad`` with ``create_graph=True``), step.py:416-509.
 """
 
 from __future__ import annotations
@@ -19,25 +25,19 @@ from typing import Callable
 import torch
 
 from pacednegatives_tpu_torch.curriculum.base import StepSignals
+from pacednegatives_tpu_torch.curriculum.meta import MetaWeightTable
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.monot5 import relevance_probs
 from pacednegatives_tpu_torch.ops.losses import (
     lce_ce,
     lce_ce_flat_tokens,
+    token_ce,
     token_ce_per_token,
 )
 from pacednegatives_tpu_torch.optim import apply_updates
 from pacednegatives_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
-
-
-def _check_slice(loss: str) -> None:
-    if loss == "pair":
-        raise NotImplementedError(
-            "loss='pair' is not ported yet (ROADMAP.md slice C, with the "
-            "interp/level/eta curricula); use loss='lce'"
-        )
 
 
 def _fold_rel_bias_grad(grads: dict, stack_key: str, g: torch.Tensor) -> None:
@@ -66,9 +66,15 @@ def make_train_step(
     microbatches: int = 1,
     grad_accum_dtype: str = "fp32",
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
-    """Build step(state, batch) -> (state, metrics) for loss="lce": main =
-    mean(pce + agg_n nce); curriculum ce = the same per-example vector
-    (or the flat-token regrouping with label_grouping="flat_tokens").
+    """Build step(state, batch) -> (state, metrics).
+
+    loss="pair": main = mean(pce) + mean(nce); the curriculum signals are
+    per label TOKEN, (B*L_label,), with ce = (pce + nce) / 2, and success
+    per example (step.py:216-222, 310-323): the reference flattens logits
+    to (B*L_label, V) before its CrossEntropyLoss, so eta's weighting, its
+    objective and the success rate run over tokens. loss="lce": main =
+    mean(pce + agg_n nce); curriculum ce = the same per-example vector (or
+    the flat-token regrouping with label_grouping="flat_tokens").
 
     microbatches=k > 1 splits the batch into k equal example slices, runs
     forward + backward on each in turn and sums the gradients in
@@ -93,7 +99,6 @@ def make_train_step(
             "grad_accum_dtype='bf16' requires microbatches > 1 "
             "(no accumulation carry exists at microbatches=1)"
         )
-    _check_slice(loss)
     n = n_neg_per_example
     k = microbatches
     acc_dt = torch.float32 if grad_accum_dtype == "fp32" else torch.bfloat16
@@ -119,13 +124,21 @@ def make_train_step(
         count = (labels != -100).sum(dim=-1).clamp_min(1)
         ce_all = ce_tok.sum(dim=-1) / count
         pce, nce = ce_all[:b], ce_all[b:]
-        if label_grouping == "flat_tokens":
-            sig_ce = lce_ce_flat_tokens(ce_tok[:b], ce_tok[b:], n, use_mean)
+        if loss == "pair":
+            main = pce.mean() + nce.mean()
+            sig_p, sig_n = ce_tok[:b].reshape(-1), ce_tok[b:].reshape(-1)
+            sig_ce = (sig_p + sig_n) / 2.0
         else:
-            sig_ce = lce_ce(pce, nce, n, use_mean)
+            if label_grouping == "flat_tokens":
+                sig_ce = lce_ce_flat_tokens(ce_tok[:b], ce_tok[b:], n,
+                                            use_mean)
+            else:
+                sig_ce = lce_ce(pce, nce, n, use_mean)
+            main = sig_ce.mean()
+            sig_p, sig_n = pce, nce
         first = logits[:, 0, :]
-        aux = (pce, nce, sig_ce, first[:b], first[b:])
-        return sig_ce.mean(), tuple(a.detach() for a in aux)
+        aux = (sig_p, sig_n, sig_ce, first[:b], first[b:])
+        return main, tuple(a.detach() for a in aux)
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
         B = batch["pos_ids"].shape[0]
@@ -186,7 +199,7 @@ def make_train_step(
                     a.add_(p) for a, p in zip(grads, parts)]
                 main_loss = main_loss + l_i.detach() / k
             auxes.append(aux_i)
-        pce, nce, sig_ce, p_first, n_first = (
+        sig_p, sig_n, sig_ce, p_first, n_first = (
             torch.cat(parts) for parts in zip(*auxes))
 
         # the optimizer and the bias fold run in fp32 (step.py:288-305)
@@ -209,8 +222,9 @@ def make_train_step(
             n_prob = relevance_probs(n_first, rel_id, nrel_id)
             n_prob_first = n_prob.reshape(-1, n)[:, 0] if n > 1 else n_prob
             signals = StepSignals(
-                pce=pce,
-                nce=nce.reshape(-1, n).mean(dim=1),
+                pce=sig_p,
+                nce=(sig_n if loss == "pair"
+                     else sig_n.reshape(-1, n).mean(dim=1)),
                 ce=sig_ce,
                 success=(p_prob > n_prob_first).float(),
             )
@@ -242,25 +256,152 @@ def make_train_step(
 
 def make_fused_step(corpus, step_fn, controller, loss: str = "pair",
                     n_neg_per_example: int = 1):
-    """fused(state, pair_idx) = difficulty -> sample negatives -> gather
-    prompts -> step, all on the corpus's device (step.py:362-408). The
-    negatives are drawn with ``state.generator``."""
-    if loss != "lce":
-        raise NotImplementedError(
-            f"loss={loss!r} is not ported yet (ROADMAP.md slice C)")
+    """fused(state, pair_idx) = difficulty -> negatives -> gather prompts ->
+    step, all on the corpus's device (step.py:362-408). LCE draws its n
+    negatives with ``state.generator``; the pair loss takes the pool slot
+    the difficulty names and draws nothing."""
+    if loss not in ("pair", "lce"):
+        raise ValueError(loss)
     default_corpus = corpus
 
     def fused(state: TrainState, pair_idx: torch.Tensor, corpus=None):
         corpus = default_corpus if corpus is None else corpus
         difficulty = controller.difficulty(state.curriculum)
-        batch = corpus.lce_batch(state.generator, pair_idx, difficulty,
-                                 n_neg_per_example)
+        if loss == "lce":
+            batch = corpus.lce_batch(state.generator, pair_idx, difficulty,
+                                     n_neg_per_example)
+        else:
+            batch = corpus.pair_batch(pair_idx, difficulty)
         return step_fn(state, batch)
 
     return fused
 
 
-def make_meta_train_step(*args, **kwargs):
-    """The bilevel meta-weight step (StdWrapper / NewWrapper)."""
-    raise NotImplementedError(
-        "make_meta_train_step is not ported yet (ROADMAP.md slice C)")
+# ---------------------------------------------------------------------------
+# Bilevel per-example weights (StdWrapper / NewWrapper)
+# ---------------------------------------------------------------------------
+
+
+def _refuse_flash_v3(cfg: t5.T5Config) -> None:
+    """std takes a gradient through a gradient, and the hand kernels'
+    autograd Functions have no double backward: each raises in its own
+    backward (``FusedSelfAttention``; ``_FlashCore`` on CUDA). flash_v3
+    reaches its Function on every device, so std refuses it when built."""
+    if cfg.flash_v3:
+        raise NotImplementedError(
+            "make_meta_train_step(variant='std') on flash_v3 "
+            "(FusedSelfAttention: K3 forward, K4 backward): std takes a "
+            "gradient through a gradient, and the hand kernels' autograd "
+            "Functions have no double backward (the JAX package fails there "
+            "too, in pallas_call's JVP rule). Run std with flash_v3=False "
+            "and, on CUDA, flash_kernel=False (the dense or the plain "
+            "chunked route)")
+
+
+def make_meta_train_step(
+    model_cfg: t5.T5Config,
+    table: MetaWeightTable,
+    tx,
+    meta_lr_schedule: Callable[[int], float],
+    variant: str = "cheap",  # "cheap" (NewWrapper) | "std" (StdWrapper)
+    rel_id: int = 3,
+    nrel_id: int = 4,
+):
+    """step(state, batch, batch_idx) -> (state, metrics) with the
+    per-example weight-table curriculum (step.py:416-509); ``batch_idx`` is
+    the table row, a host int.
+
+    cheap (NewWrapper, pairwrapper.py:219-284): the frozen model's CE (two
+    forwards under ``no_grad``) drives the closed-form weight update; the
+    main loss is unweighted.
+
+    std (StdWrapper, pairwrapper.py:102-206): the weighted CE's gradient
+    with ``create_graph=True``, virtual params theta' = theta - lr * g, and
+    the gradient of weighted_CE(theta', v) - sum(v) with respect to v
+    through it; the main loss is weighted by the stored row, detached.
+    Raises NotImplementedError where the model reaches a hand kernel's
+    autograd Function: flash_v3 when built, chunked ``flash_kernel`` on
+    CUDA in ``_FlashCore``'s backward.
+
+    Every forward runs on the fp32 master weights (each product casts them
+    to the compute dtype), with no precomputed biases and no fused q|k|v,
+    as the JAX step runs them; ``rel_id`` / ``nrel_id`` are accepted for
+    the JAX signature and unused there too. The generators do not move."""
+    del rel_id, nrel_id
+    if variant not in ("cheap", "std"):
+        raise ValueError(f"variant must be 'cheap' or 'std', got {variant!r}")
+    if variant == "std":
+        _refuse_flash_v3(model_cfg)
+
+    def per_example(params, batch):
+        def ce(side):
+            logits = t5.forward_logits(params, model_cfg, batch[f"{side}_ids"],
+                                       batch[f"{side}_labels"],
+                                       batch[f"{side}_mask"])
+            return token_ce(logits, batch[f"{side}_labels"])
+
+        return ce("pos"), ce("neg")
+
+    def weighted(pce, nce, v):
+        B = v.shape[0]
+        return (pce * v).sum() / B + (nce * v).sum() / B
+
+    def leaves_of(params):
+        return {k: p.detach().requires_grad_(True)
+                for k, p in t5.flatten_params(params).items()}
+
+    def grads_of(loss, leaves, **kw):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True, **kw)
+        return [torch.zeros_like(p) if g is None else g
+                for g, p in zip(grads, leaves.values())]
+
+    def step(state: TrainState, batch: Batch, batch_idx: int):
+        device = batch["pos_ids"].device
+        lr = torch.full((), float(meta_lr_schedule(state.step)),
+                        dtype=torch.float32, device=device)
+        v = table.lookup(state.curriculum, batch_idx)
+
+        if variant == "cheap":
+            with torch.no_grad():
+                pce0, nce0 = per_example(state.params, batch)
+            raw = table.cheap_update(v, pce0, nce0, lr)
+            curriculum = table.store(state.curriculum, batch_idx, raw)
+            v_main = None  # unweighted main (pairwrapper.py:241-257)
+        else:
+            with torch.enable_grad():
+                v_ = v.detach().requires_grad_(True)
+                leaves = leaves_of(state.params)
+                inner = weighted(*per_example(t5.unflatten_params(leaves),
+                                              batch), v_)
+                g = grads_of(inner, leaves, create_graph=True)
+                virtual = t5.unflatten_params(
+                    {k: p - lr * gk
+                     for (k, p), gk in zip(leaves.items(), g)})
+                outer = weighted(*per_example(virtual, batch), v_) - v_.sum()
+                (gv,) = torch.autograd.grad(outer, v_)
+            # the second-order graph goes before the main forward's
+            del inner, g, virtual, outer
+            raw = v - lr * gv
+            curriculum = table.store(state.curriculum, batch_idx, raw)
+            v_main = table.lookup(curriculum, batch_idx)
+
+        leaves = leaves_of(state.params)
+        with torch.enable_grad():
+            pce, nce = per_example(t5.unflatten_params(leaves), batch)
+            loss = (pce.mean() + nce.mean() if v_main is None
+                    else weighted(pce, nce, v_main.detach()))
+            grads = grads_of(loss, leaves)
+        grads = t5.unflatten_params(dict(zip(leaves, grads)))
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        params = apply_updates(state.params, updates)
+        metrics = {
+            "loss": loss.detach(),
+            **table.metrics(curriculum, batch_idx),
+        }
+        new_state = state._replace(params=params, opt_state=opt_state,
+                                   curriculum=curriculum,
+                                   step=state.step + 1)
+        return new_state, metrics
+
+    return step

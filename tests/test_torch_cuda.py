@@ -919,3 +919,44 @@ def test_gemm_tiles_edges_strides_and_repeats(cuda, M, K, N, pad):
     assert a.stride(0) == K + pad and torch.equal(c, again)
     tol = 2.0**-7 * ref.float().abs().max().item()
     assert (c.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_double_backward_through_k4_raises(cuda):
+    """FusedSelfAttention (K3 / K4) is once differentiable: a gradient
+    taken with create_graph=True raises before K4 launches, where the
+    kernel's outputs, which carry no autograd history, would drop terms."""
+    B, L, D, H, dk = 2, 64, 256, 4, 64
+    x = _randn(cuda, B, L, D).float().requires_grad_()
+    wqkv = _randn(cuda, D, 3 * H * dk, scale=D**-0.5)
+    wo = _randn(cuda, H * dk, D, scale=(H * dk)**-0.5)
+    pos3 = torch.randn((H, L, L), generator=cuda, device="cuda") * 0.3
+    km = torch.zeros((B, L), device="cuda")
+    y = flash_v3.fused_self_attention(x.to(torch.bfloat16), wqkv, wo, pos3,
+                                      km)
+    before = flash.attention_backward.launches
+    with pytest.raises(NotImplementedError, match="double backward"):
+        torch.autograd.grad(y.float().sum(), x, create_graph=True)
+    assert flash.attention_backward.launches == before
+    (g,) = torch.autograd.grad(y.float().sum(), x)  # first order: K4
+    assert flash.attention_backward.launches == before + 1
+    assert torch.isfinite(g).all()
+
+
+def test_double_backward_through_k2b_raises(cuda):
+    """_FlashCore's kernel route (K1 / K2b) raises under create_graph=True;
+    its plain route, torch ops, differentiates twice on the card too."""
+    B, H, L, dk = 2, 2, 128, 64
+    q, k, v = (torch.randn((B, H, L, dk), generator=cuda, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    shared = torch.randn((1, H, L, L), generator=cuda, device="cuda") * 0.3
+    per_batch = torch.zeros((B, 1, 1, L), device="cuda")
+    assert flash.flash_v2_eligible(H, L, L, dk)
+    out = t5.flash_core(L, "kernel", "fp32", q, k, v, shared, per_batch)
+    before = flash.flash_attention_backward_v2.launches
+    with pytest.raises(NotImplementedError, match="double backward"):
+        torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    assert flash.flash_attention_backward_v2.launches == before
+    out = t5.flash_core(L, "plain", "fp32", q, k, v, shared, per_batch)
+    (gq,) = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    (gk,) = torch.autograd.grad(gq.float().square().sum(), k)
+    assert torch.isfinite(gk).all() and gk.abs().max() > 0

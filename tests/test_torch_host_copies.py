@@ -3,7 +3,8 @@
 ``pacednegatives_tpu_torch/data/{tokenizer,corpus,pipeline,spm_export,
 triples,tools,streaming}.py``, ``utils/config.py``,
 ``eval/{metrics,run_io,experiment}.py``, ``index/{porter,bm25}.py`` and
-``cli/{dataset_tools,train_tokenizer,bm25_grid}.py`` are copies, kept
+``cli/{dataset_tools,train_tokenizer,bm25_grid}.py`` and the training
+presets ``cli/train_{interp,level,eta,std}.py`` are copies, kept
 because the JAX package's ``__init__`` modules import JAX eagerly and the
 port imports nothing of the JAX package. Each copy must equal its original
 except for import lines, and produce the same ids, masks and lengths. The
@@ -33,7 +34,9 @@ COPIES = {"tokenizer.py": "data", "corpus.py": "data", "pipeline.py": "data",
           "tools.py": "data", "streaming.py": "data", "metrics.py": "eval",
           "run_io.py": "eval", "experiment.py": "eval", "porter.py": "index",
           "bm25.py": "index", "dataset_tools.py": "cli",
-          "train_tokenizer.py": "cli", "bm25_grid.py": "cli"}
+          "train_tokenizer.py": "cli", "bm25_grid.py": "cli",
+          "train_interp.py": "cli", "train_level.py": "cli",
+          "train_eta.py": "cli", "train_std.py": "cli"}
 
 
 @pytest.mark.parametrize("name", list(COPIES))
@@ -112,6 +115,10 @@ def test_port_imports_without_jax():
     modules = _port_modules()
     assert "pacednegatives_tpu_torch.cli.evaluate" in modules
     assert "pacednegatives_tpu_torch.index.dense" in modules
+    assert {f"pacednegatives_tpu_torch.{m}" for m in (
+        "curriculum.interp", "curriculum.level", "curriculum.contrast",
+        "curriculum.meta", "cli.sweep", "cli.train_interp",
+        "cli.train_level", "cli.train_eta", "cli.train_std")} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -361,7 +361,7 @@ def test_cli_train_main_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("curriculum", "eta"), ("scored_pool", 4),
+    ("scan_layers", True), ("scored_pool", 4),
     ("export_hf", True), ("model", "/some/hf/dir"),
 ])
 def test_run_refuses_unported_settings(tmp_path, field, value):

@@ -35,7 +35,8 @@ Phases, one JSON line each (any failure exits non-zero):
              block's scores must agree with the port run on the CPU;
 5. train   - the LCE training step at t5-base width (flash_v3 + fused_qkv,
              bf16, batch 16 x (1 + 7 negatives) x 188 tokens) through
-             ``cli.train.main`` for a few optimizer steps: launch counts as
+             ``cli.train.main`` for a few optimizer steps (with
+             ``--export_hf``, read in phase 10): launch counts as
              the routing predicts, finite losses, changed weights; then one
              step with the kernels against the dense route on the same
              weights and batch (loss and per-leaf gradients); then the
@@ -92,7 +93,26 @@ Phases, one JSON line each (any failure exits non-zero):
              against remat off; the pair step alone, timed and one step
              profiled; meta-std's
              v-gradient at t5-base in fp32 against central finite
-             differences; and meta-std refusing the kernels' routes.
+             differences; and meta-std refusing the kernels' routes;
+10. scored - K3 against its plain version at the scored pool's bucket
+             widths 64 and 160 and the SPLADE query length 24; phase 5's
+             preset with 64 model-scored candidates a pair through
+             ``cli.train.main`` (4 steps, K3 24 / K4 12 a step;
+             ``neg_scored`` 16 x (64 + 7)) and 2 steps scoring through the
+             W8A8 forward with a bf16 stream (K3 12); the first step's 2 x
+             64 candidate scores on the card against the CPU, bf16 and
+             int8_bf16; the JAX bench's fused_scored (C 256 of pools of
+             1,000, a lognormal packed corpus, buckets 64/96/128/160,
+             chunks of 256 rows) through ``make_scored_pool_step`` without
+             a hand kernel and with flash_v3 + fused_qkv (K3 240, K4 48 a
+             step), bucketed against full-width scores (max |diff|, order
+             moves), steps/s and negatives scored/s beside the matched
+             ref_varlen control (an upper-bound multiple: the control
+             pads to the fixed budget); phase 5's HF export read back bit
+             for bit and trained from for 2 steps (ce_scale 1.0); and
+             ``cli.build_pools.main --method splade`` on phase 5's run over
+             phase 8's corpus (K3 384), the first docs' activations and
+             top terms against the CPU.
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -136,6 +156,13 @@ from pacednegatives_tpu_torch.eval.run_io import read_trec_run
 from pacednegatives_tpu_torch.index import bm25
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
+from pacednegatives_tpu_torch.models.hf_import import load_hf_checkpoint
+from pacednegatives_tpu_torch.models.monot5 import score_batch
+from pacednegatives_tpu_torch.models.quant import (
+    quantize_scoring_params,
+    score_batch_int8,
+)
+from pacednegatives_tpu_torch.models.splade import splade_activations
 from pacednegatives_tpu_torch.ops.flash import (
     NEG_INF,
     attention_backward,
@@ -165,6 +192,7 @@ from pacednegatives_tpu_torch.ops.mips import (
     mips_topk_pallas_quantized,
     mips_topk_pallas_quantized_plain,
     quantize_embeddings,
+    topk_stable,
 )
 from pacednegatives_tpu_torch.optim import tree_leaves
 from pacednegatives_tpu_torch.train import (
@@ -177,6 +205,11 @@ from pacednegatives_tpu_torch.train import (
 )
 from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE, MetricWriter
 from pacednegatives_tpu_torch.train.runner import load_run
+from pacednegatives_tpu_torch.train.scored_pool import (
+    balanced_slots,
+    make_scored_pool_step,
+    score_candidates,
+)
 
 BF16_ULP_REL = 2.0**-7  # one bf16 ulp, relative to the largest magnitude
 B_SERVE, L_SERVE = 256, 188  # Reranker batch and t5-base prompt length
@@ -1176,11 +1209,14 @@ def _per_step(**counts) -> dict:
 
 
 def _train_run(smi: str, case: str, preset: dict, per_step: dict,
-               once: dict | None = None, out: str | None = None) -> dict:
+               once: dict | None = None, out: str | None = None,
+               init: dict | None = None, phase: str = "train") -> dict:
     """cli.train.main with ``preset``, counted: launches must be
     ``per_step`` times the steps plus ``once`` (launches outside the
-    steps), losses finite and every weight moved. The run directory is
-    ``out`` when given (and kept), else a temporary one."""
+    steps), losses finite and every weight moved from ``init`` (flat
+    weights; default the runner's seed-42 initialisation). The run
+    directory is ``out`` when given (and kept), else a temporary one. The
+    returned fields add the run's metric rows."""
     with tempfile.TemporaryDirectory() as tmp:
         out = out or os.path.join(tmp, "run")
         torch.cuda.synchronize()
@@ -1201,7 +1237,7 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict,
     losses = [r["loss"] for r in rows if "loss" in r]
     finite = len(losses) == steps and bool(np.isfinite(losses).all())
     # the runner's initial weights: the same seed, the same draws
-    init = t5.flatten_params(t5.init_params(
+    init = init or t5.flatten_params(t5.init_params(
         t5.T5Config.base(), torch.Generator(device="cuda").manual_seed(42),
         "cuda"))
     changed = sum(not torch.equal(final[k], init[k]) for k in init)
@@ -1225,11 +1261,11 @@ def _train_run(smi: str, case: str, preset: dict, per_step: dict,
         refresh_seconds=[r["refresh_seconds"] for r in rows
                          if "refresh_seconds" in r],
     )
-    emit("train", **fields)
+    emit(phase, **fields)
     if not (launches == want and finite and changed == len(init)
             and weights_finite):
-        raise AssertionError(f"train {case}: {fields}")
-    return fields
+        raise AssertionError(f"{phase} {case}: {fields}")
+    return {**fields, "rows": rows}
 
 
 def _step_env(cfg: t5.T5Config, max_d: int, pairs: int, n_neg: int,
@@ -1436,8 +1472,10 @@ def phase_train(smi: str, run_dir: str) -> dict:
     # the forward's two projections and the backward's qkv recompute
     per_step = _per_step(attention=layers, attention_bwd=layers,
                          gemm=3 * layers)
-    # the run directory stays for phase 8's evaluation
-    run = _train_run(smi, "cli.train.main", TRAIN_PRESET, per_step,
+    # the run directory stays for phase 8's evaluation, its HF export for
+    # phase 10
+    run = _train_run(smi, "cli.train.main", dict(TRAIN_PRESET,
+                                                 export_hf=True), per_step,
                      out=run_dir)
     step1 = _step_ab("step1_flash_v3_vs_dense", _train_cfg(True),
                      _train_cfg(False), 160, per_step,
@@ -2400,6 +2438,518 @@ def phase_curricula(smi: str) -> dict:
             "meta_std_fd": fd, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: model-scored negatives, HF checkpoints, SPLADE pools
+# ---------------------------------------------------------------------------
+
+# 10a: phase 5's preset with 64 model-scored candidates a pair, at the
+# runner's default chunk of 1,024 rows (16 x 64: one scoring call a step);
+# then 2 steps scoring through the W8A8 forward with a bf16 stream
+SCORED_C, SCORED_STEPS, SCORED_INT8_STEPS = 64, 4, 2
+SCORED_PRESET = dict(TRAIN_PRESET, scored_pool=SCORED_C,
+                     total_steps=B_TRAIN * SCORED_STEPS)
+SCORED_CHECK_PAIRS = 2  # the card against the CPU on 2 x 64 candidates
+# 10b: the JAX bench's fused_scored (bench.py:1172-1192, corpus :95-105):
+# 256 candidates of pools of 1,000 on a lognormal packed corpus, scored in
+# chunks of 256 rows at bucket widths 64/96/128/160 (188 for the longest),
+# chunked attention at 192, 4 microbatches, factored moments, bf16 carry
+# and residual, no remat; 4 steps a run. Its matched control ref_varlen
+# (bench.py:1194-1199, bench_reference_style :253-450): the reference's
+# step on the same corpus, every prompt padded to the 188-token budget.
+FS_C, FS_POOL, FS_STEPS, FS_MB = 256, 1000, 4, 4
+FS_BUCKETS, FS_CHUNK, FS_ATTN_CHUNK = (64, 96, 128, 160), 256, 192
+REF_STEPS = 4
+# 10c: build_pools --method splade on phase 5's run over phase 8's corpus
+SPLADE_TERMS, SPLADE_BATCH, SPLADE_CUTOFF, SPLADE_CHECK_DOCS = 128, 64, 100, 8
+# Tolerances. The bf16 forward's bound of the card against the CPU
+# (SCORE_ATOL: bf16 rounding flips accumulated over 12 + 12 layers) holds:
+# - bucketed against full-width scores on the card: a masked forward is
+#   padding-invariant, but at another width the products run at other
+#   shapes (cuBLAS and K3 pick other tiles and summation orders);
+# - SPLADE activations log1p(relu(h E^T / sqrt(d))), card against CPU: the
+#   bf16 encoder output h carries those flips; the fp32 vocab product adds
+#   nothing comparable.
+# int8_bf16 candidate scores, card against CPU: each side's W8A8 forward
+# lies within the int8 scorer's own noise of its bf16 forward (0.03, the
+# JAX package's bound, tests/test_quant.py), and the two bf16 forwards
+# within SCORE_ATOL of each other. The forward is not continuous (a bf16
+# rounding flip in the stream flips int8 codes downstream), so nothing
+# tighter holds; a fault (a wrong scale, a transposed weight) moves the
+# scores by their spread, O(0.3) at these random weights.
+INT8_NOISE = 0.03
+INT8_BF16_SCORE_ATOL = SCORE_ATOL + 2 * INT8_NOISE
+BUCKET_SCORE_ATOL = SPLADE_ACT_ATOL = SCORE_ATOL
+
+
+def _scored_per_step(layers: int, scoring_chunks: int = 1,
+                     microbatches: int = 1) -> dict:
+    """Launches of one scored-pool step on the kernels' route: each scoring
+    chunk K3 once per encoder layer (GEMM 2 a layer: q|k|v concatenated at
+    its use), each microbatch K3 and K4 once per encoder layer (GEMM 3 a
+    layer); the decoder's attention takes the plain route."""
+    return _per_step(attention=layers * (scoring_chunks + microbatches),
+                     attention_bwd=layers * microbatches,
+                     gemm=layers * (2 * scoring_chunks + 3 * microbatches))
+
+
+def _scored_cli(smi: str, layers: int) -> dict:
+    """10a through ``cli.train.main``: launches as predicted, finite
+    losses, every weight moved, ``neg_scored`` = 16 x (64 + 7) a step."""
+    run = _train_run(smi, "scored_pool_64", SCORED_PRESET,
+                     _scored_per_step(layers), phase="scored")
+    want_neg = B_TRAIN * (SCORED_C + N_NEG_TRAIN)
+    neg = [r["neg_scored"] for r in run["rows"] if "neg_scored" in r]
+    fields = dict(case="scored_pool_64", neg_scored=neg,
+                  expected_neg_scored=want_neg,
+                  neg_scored_per_s=want_neg * run["steps_per_s"],
+                  pool_score_spread=[r["pool_score_spread"]
+                                     for r in run["rows"]
+                                     if "pool_score_spread" in r],
+                  neg_rank_static=[r["neg_rank_static"] for r in run["rows"]
+                                   if "neg_rank_static" in r])
+    emit("scored", **fields)
+    if neg != [want_neg] * SCORED_STEPS:
+        raise AssertionError(f"scored: {fields}")
+    # scoring through torch._int_mm: only the train pass launches kernels
+    int8 = _train_run(smi, "scored_pool_64_int8_bf16",
+                      dict(SCORED_PRESET, scored_pool_dtype="int8_bf16",
+                           total_steps=B_TRAIN * SCORED_INT8_STEPS),
+                      _scored_per_step(layers, scoring_chunks=0),
+                      phase="scored")
+    return {"run": {**run, **fields}, "int8_bf16": int8}
+
+
+def _scored_vs_cpu() -> dict:
+    """The first step's candidates of 10a's first pairs (pair rows 0 and 1
+    of the unshuffled stream, the runner's seed-42 weights, 64 balanced
+    slots of each pool) scored on the card and by the port on the CPU:
+    bf16 (K3 on the card, its plain version on the CPU) and int8_bf16."""
+    tok = HashTokenizer(vocab_size=32128)
+    corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
+                                 max_d_tokens=160)
+    triples = TripletStore.synthetic(corpus, n_pairs=1024, n_neg=100,
+                                     seed=42)
+    dc = DeviceCorpus.build(store, triples, device="cuda")
+    cfg = _train_cfg(True)
+    params = t5.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(42), "cuda")
+    pairs = torch.arange(SCORED_CHECK_PAIRS, device="cuda")
+    slots = torch.from_numpy(balanced_slots(100, SCORED_C)).cuda().long()
+    ids, mask = dc.assemble(dc.query_rows[pairs].repeat_interleave(SCORED_C),
+                            dc.pools[pairs][:, slots].reshape(-1))
+    kw = dict(rel_id=tok.true_id, nrel_id=tok.false_id)
+    out, card = {}, {}
+    for label, tol in (("bf16", SCORE_ATOL),
+                       ("int8_bf16", INT8_BF16_SCORE_ATOL)):
+        got = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            p = t5.tree_map(lambda t: t.to(dev), params)
+            i, m = ids.to(dev), mask.to(dev)
+            with torch.no_grad():
+                if label == "bf16":
+                    s = score_batch(p, cfg, i, m, **kw)
+                else:
+                    s = score_batch_int8(quantize_scoring_params(p, cfg),
+                                         cfg, i, m, stream_dtype=torch
+                                         .bfloat16, **kw)
+            got[dev] = s.float().cpu().view(SCORED_CHECK_PAIRS, SCORED_C)
+        same_order = int((torch.argsort(got["cuda"], dim=1, stable=True)
+                          == torch.argsort(got["cpu"], dim=1, stable=True))
+                         .sum())
+        card[label] = got["cuda"]
+        out[label] = check(f"scored_candidates_{label}_vs_cpu",
+                           max_abs(got["cuda"], got["cpu"]), tol,
+                           rows=SCORED_CHECK_PAIRS * SCORED_C,
+                           same_order_positions=same_order,
+                           score_std=got["cuda"].std().item(),
+                           seconds=time.perf_counter() - t0)
+    # as information: the int8 scorer's own noise on these rows
+    out["int8_bf16_vs_bf16_on_card"] = max_abs(card["int8_bf16"],
+                                               card["bf16"])
+    emit("scored", check="int8_bf16_vs_bf16_on_card",
+         max_abs_diff=out["int8_bf16_vs_bf16_on_card"])
+    return out
+
+
+def _lognormal_corpus() -> TextCorpus:
+    """The bench's variable-length corpus (bench.py:95-115): doc word
+    counts lognormal(4.0, 0.45) clipped to [12, 150], queries of 4-11
+    words, from one generator of seed 7."""
+    rng = np.random.default_rng(7)
+    d_lens = np.clip(rng.lognormal(mean=4.0, sigma=0.45, size=2048)
+                     .astype(int), 12, 150)
+    words = [f"w{i}" for i in range(500)]
+    return TextCorpus(
+        [f"d{i}" for i in range(2048)],
+        [" ".join(rng.choice(words, size=k)) for k in d_lens],
+        [f"q{i}" for i in range(256)],
+        [" ".join(rng.choice(words, size=k))
+         for k in rng.integers(4, 12, size=256)],
+    )
+
+
+def _fs_cfg(kernels: bool) -> t5.T5Config:
+    """fused_scored's model: chunked attention at 192, bf16 residual, no
+    remat; with ``kernels`` flash_v3 + fused_qkv (K3 / K4 take the encoder's
+    self-attention, the decoder's stays on the plain chunked route)."""
+    return dataclasses.replace(
+        t5.T5Config.base(), dtype=torch.bfloat16, attention_impl="chunked",
+        attention_chunk=FS_ATTN_CHUNK, attn_residual_dtype="bf16",
+        flash_v3=kernels, fused_qkv=kernels)
+
+
+def _bucketed_vs_full(cfg: t5.T5Config, params: dict, dc, tok,
+                      pair_idx: torch.Tensor) -> dict:
+    """One step's B x 256 candidates scored by ``score_candidates`` at the
+    full width and with the buckets, both in chunks of 256 rows: max |diff|
+    and how many candidates' places in their pair's order move."""
+    slots = torch.from_numpy(balanced_slots(dc.n_neg, FS_C)).cuda().long()
+    B = pair_idx.shape[0]
+    ids, mask = dc.assemble(dc.query_rows[pair_idx].repeat_interleave(FS_C),
+                            dc.pools[pair_idx][:, slots].reshape(-1))
+    fn = lambda i, m: score_batch(params, cfg, i, m, rel_id=tok.true_id,
+                                  nrel_id=tok.false_id)
+    full = score_candidates(fn, ids, mask, chunk_rows=FS_CHUNK).view(B, FS_C)
+    bkt = score_candidates(fn, ids, mask, chunk_rows=FS_CHUNK,
+                           buckets=FS_BUCKETS, packed=True).view(B, FS_C)
+    moved = int((torch.argsort(full, dim=1, stable=True)
+                 != torch.argsort(bkt, dim=1, stable=True)).sum())
+    # candidate pairs (i, j) of one query that the two orders rank apart
+    sf = torch.sign(full[:, :, None] - full[:, None, :])
+    sb = torch.sign(bkt[:, :, None] - bkt[:, None, :])
+    discordant = int((sf != sb).sum()) // 2
+    lengths = torch.sort(mask.sum(dim=1)).values.view(-1, FS_CHUNK)
+    longest = lengths.amax(dim=1).tolist()
+    ladder = [b for b in FS_BUCKETS if b < ids.shape[1]] + [ids.shape[1]]
+    widths = [min(b for b in ladder if b >= n) for n in longest]
+    return dict(max_abs_err=max_abs(full, bkt), tol=BUCKET_SCORE_ATOL,
+                rows=B * FS_C, order_positions_moved=moved,
+                discordant_candidate_pairs=discordant,
+                chunk_widths=widths, full_width=ids.shape[1],
+                mean_true_prompt_len=mask.sum(dim=1).float().mean().item(),
+                score_std=full.std().item())
+
+
+def _fused_scored_run(smi: str, label: str, kernels: bool, env: tuple,
+                      per_step: dict) -> dict:
+    """fused_scored through ``make_scored_pool_step`` for FS_STEPS steps on
+    the bench's index draws (with the kernels, then one step under
+    ``torch.profiler``: device-busy ms, idle share, ``aten`` ops): launches,
+    finite losses, every weight moved, ``neg_scored`` = 16 x (256 + 7),
+    steps/s, negatives scored/s; then one step's candidates bucketed
+    against full width."""
+    tok, dc, params = env
+    cfg = _fs_cfg(kernels)
+    total = FS_STEPS * 3
+    ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=10,
+                         total_steps=total,
+                         ce_scale=2.0 * float(np.log(cfg.vocab_size)))
+    tx = make_optimizer(1e-3, total_steps=total, moments="factored")
+    step = make_train_step(cfg, ctrl, tx, loss="lce",
+                           n_neg_per_example=N_NEG_TRAIN,
+                           rel_id=tok.true_id, nrel_id=tok.false_id,
+                           microbatches=FS_MB, grad_accum_dtype="bf16")
+    fused = make_scored_pool_step(
+        dc, step, ctrl, cfg, n_neg_per_example=N_NEG_TRAIN, candidates=FS_C,
+        rel_id=tok.true_id, nrel_id=tok.false_id, score_chunk_rows=FS_CHUNK,
+        score_buckets=FS_BUCKETS)
+    state = init_train_state(params, tx, ctrl.init("cuda"))
+    rng = np.random.default_rng(0)  # the bench's index draws (bench.py:217)
+    idx = [torch.from_numpy(rng.integers(0, dc.num_pairs, size=B_TRAIN))
+           .cuda() for _ in range(FS_STEPS + 1)]
+    torch.cuda.synchronize()
+    _zero_launches()
+    losses, times, neg = [], [], []
+    for i in range(FS_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = fused(state, idx[i])
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+        neg.append(metrics["neg_scored"].item())
+    profiled = {}
+    if kernels:
+        state, busy, aten = _profiled_step(fused, state, idx[FS_STEPS])
+        profiled = dict(busy_ms=busy, aten_ops_per_step=aten,
+                        idle_share=1.0 - busy / (statistics.median(times[1:])
+                                                 * 1e3))
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {k: n * (FS_STEPS + bool(profiled)) for k, n in per_step.items()}
+    init, final = t5.flatten_params(params), t5.flatten_params(state.params)
+    changed = sum(not torch.equal(final[k], init[k]) for k in init)
+    finite = bool(np.isfinite(losses).all()) and all(
+        torch.isfinite(v).all().item() for v in final.values())
+    del state, fused, step
+    step_s = statistics.median(times[1:])
+    per_neg = B_TRAIN * (FS_C + N_NEG_TRAIN)
+    bucketed = _bucketed_vs_full(cfg, params, dc, tok, idx[0])
+    fields = dict(
+        case=label, kernels=kernels, steps=FS_STEPS, losses=losses,
+        step_s=times, steps_per_s=1.0 / step_s,
+        neg_scored=neg, expected_neg_scored=per_neg,
+        neg_scored_per_s=per_neg / step_s,
+        trained_negatives_per_s=B_TRAIN * N_NEG_TRAIN / step_s, **profiled,
+        launches=launches, expected_launches=want,
+        leaves_changed=changed, leaves=len(init), finite=finite,
+        bucketed_vs_full=bucketed, nvidia_smi=smi)
+    emit("scored", **fields)
+    if not (launches == want and finite and changed == len(init)
+            and neg == [per_neg] * FS_STEPS
+            and bucketed["max_abs_err"] <= BUCKET_SCORE_ATOL):
+        raise AssertionError(f"fused_scored {label}: {fields}")
+    return fields
+
+
+def _ref_varlen(smi: str, tok, corpus, store, triples, params) -> dict:
+    """The matched control: the reference's step (bench_reference_style)
+    on the lognormal corpus. A host batch a step (the paced binomial PMF,
+    one draw per example, the prompt strings tokenized and padded to the
+    188-token budget), two no-grad forwards for the eta update, then two
+    forwards with gradients, AdamW; the runner's default remat
+    (dots_nobatch), dense attention, no hand kernel."""
+    import scipy.stats
+
+    from pacednegatives_tpu_torch.curriculum.base import StepSignals
+    from pacednegatives_tpu_torch.data.tokenizer import pad_batch
+    from pacednegatives_tpu_torch.ops.losses import lce_ce, token_ce
+    from pacednegatives_tpu_torch.optim import apply_updates
+
+    cfg = dataclasses.replace(t5.T5Config.base(), dtype=torch.bfloat16,
+                              remat=True, remat_policy="dots_nobatch")
+    n, B, P, L = N_NEG_TRAIN, B_TRAIN, triples.n_neg, store.prompt_len
+    ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=10,
+                         total_steps=REF_STEPS * 3,
+                         ce_scale=2.0 * float(np.log(cfg.vocab_size)))
+    tx = make_optimizer(1e-3, total_steps=REF_STEPS * 3)
+    state = init_train_state(params, tx, ctrl.init("cuda"))
+    rng = np.random.default_rng(0)
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.int64)).cuda()
+    prompt = lambda q, d: (f"Query: {corpus.query_texts[q]} Document: "
+                           f"{corpus.doc_texts[d]} Relevant:")
+
+    def host_batch(difficulty: float) -> dict:
+        pair_idx = rng.integers(0, len(triples), size=B)
+        pmf = scipy.stats.binom.pmf(np.arange(P), P - 1,
+                                    np.clip(difficulty, 1e-10, 1 - 1e-10))
+        pmf = pmf / pmf.sum()
+        neg = np.stack([triples.pools[i][rng.choice(P, size=n, replace=False,
+                                                    p=pmf)]
+                        for i in pair_idx])
+        q = triples.query_rows[pair_idx]
+        enc = lambda qs, ds: pad_batch([tok.encode(prompt(a, b), add_eos=True)
+                                        for a, b in zip(qs, ds)], L,
+                                       tok.pad_id)
+        pos_ids, pos_mask = enc(q, triples.pos_rows[pair_idx])
+        neg_ids, neg_mask = enc(np.repeat(q, n), neg.reshape(-1))
+        return {"pos_ids": cuda(pos_ids), "pos_mask": cuda(pos_mask),
+                "pos_labels": cuda(store.labels(B, True)),
+                "neg_ids": cuda(neg_ids), "neg_mask": cuda(neg_mask),
+                "neg_labels": cuda(store.labels(B * n, False))}
+
+    def ce(params, side, batch):
+        logits = t5.forward_logits(params, cfg, batch[f"{side}_ids"],
+                                   batch[f"{side}_labels"],
+                                   batch[f"{side}_mask"])
+        return token_ce(logits, batch[f"{side}_labels"])
+
+    def one_step(state):
+        batch = host_batch(float(ctrl.difficulty(state.curriculum)))
+        with torch.no_grad():
+            c = lce_ce(ce(state.params, "pos", batch),
+                       ce(state.params, "neg", batch), n, True)
+        curriculum = ctrl.update(state.curriculum, StepSignals(
+            pce=c, nce=c, ce=c, success=torch.zeros_like(c)))
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in t5.flatten_params(state.params).items()}
+        with torch.enable_grad():
+            p = t5.unflatten_params(leaves)
+            loss = lce_ce(ce(p, "pos", batch), ce(p, "neg", batch), n,
+                          True).mean()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        updates, opt_state = tx.update(
+            t5.unflatten_params(dict(zip(leaves, grads))), state.opt_state,
+            state.params)
+        return state._replace(params=apply_updates(state.params, updates),
+                              opt_state=opt_state, curriculum=curriculum,
+                              step=state.step + 1), loss.item()
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    state, first = one_step(state)  # warm-up, as the bench's
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(REF_STEPS):
+        state, loss = one_step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    sps = REF_STEPS / (time.perf_counter() - t0)
+    launches = _launches()
+    fields = dict(case="ref_varlen", steps=REF_STEPS, losses=[first, *losses],
+                  steps_per_s=sps, neg_scored_per_s=sps * B * n,
+                  prompt_len=L, launches=launches,
+                  expected_launches=_per_step(), nvidia_smi=smi)
+    emit("scored", **fields)
+    if launches != _per_step() or not np.isfinite(fields["losses"]).all():
+        raise AssertionError(f"ref_varlen: {fields}")
+    return fields
+
+
+def _fused_scored(smi: str, layers: int) -> dict:
+    """10b: fused_scored as the bench runs it (no hand kernel), again with
+    flash_v3 + fused_qkv (K3 at the bucket widths), and ref_varlen."""
+    tok = HashTokenizer(vocab_size=32128)
+    corpus = _lognormal_corpus()
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
+                                 max_d_tokens=160)
+    triples = TripletStore.synthetic(corpus, n_pairs=1024, n_neg=FS_POOL,
+                                     seed=1)
+    dc = DeviceCorpus.build(store, triples, device="cuda", packed=True)
+    params = t5.init_params(t5.T5Config.base(),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    env = (tok, dc, params)
+    chunks = B_TRAIN * FS_C // FS_CHUNK
+    plain = _fused_scored_run(smi, "fused_scored", False, env, _per_step())
+    kern = _fused_scored_run(smi, "fused_scored_flash_v3", True, env,
+                             _scored_per_step(layers, chunks, FS_MB))
+    ref = _ref_varlen(smi, tok, corpus, store, triples, params)
+    multiple = {label: r["neg_scored_per_s"] / ref["neg_scored_per_s"]
+                for label, r in (("plain", plain), ("flash_v3", kern))}
+    # ref_varlen pads every row to the fixed budget, not to each batch's
+    # longest row: the multiples are upper bounds
+    emit("scored", check="neg_scored_per_s_over_ref_varlen",
+         upper_bound=True, **multiple)
+    return {"plain": plain, "kernels": kern, "ref_varlen": ref,
+            "multiple_upper_bound": multiple}
+
+
+def _hf_and_splade(smi: str, layers: int, run_dir: str) -> dict:
+    """10c: phase 5's ``--export_hf`` directory read back (every leaf equal
+    to the final checkpoint's), ``cli.train.main --model <that dir>`` for 2
+    steps (ce_scale 1.0), and ``cli.build_pools.main --method splade`` on
+    phase 5's run over phase 8's corpus (K3 once per encoder layer per
+    batch of 64 docs of L 160; the queries, L 24, sit below the fused
+    block's 64-token gate and take the dense route), the first docs'
+    activations and top terms against the port on the CPU."""
+    export = os.path.join(run_dir, "model")
+    params, mcfg, tok, rc = load_run(run_dir, device="cuda")
+    hf_params, hf_cfg = load_hf_checkpoint(export, device="cuda")
+    trained, read = t5.flatten_params(params), t5.flatten_params(hf_params)
+    fields = dict(case="export_hf_read_back", leaves=len(read),
+                  equal=set(trained) == set(read) and all(
+                      torch.equal(trained[k], read[k]) for k in trained),
+                  config_equal=all(getattr(hf_cfg, f) == getattr(mcfg, f)
+                                   for f in ("vocab_size", "d_model", "d_kv",
+                                             "d_ff", "num_heads",
+                                             "num_layers",
+                                             "num_decoder_layers",
+                                             "tie_word_embeddings",
+                                             "gated_ffn")),
+                  files=sorted(os.listdir(export)))
+    emit("scored", **fields)
+    if not (fields["equal"] and fields["config_equal"]):
+        raise AssertionError(f"export_hf: {fields}")
+    hf_run = _train_run(smi, "from_hf_export",
+                        dict(TRAIN_PRESET, model=export,
+                             total_steps=B_TRAIN * 2),
+                        _per_step(attention=layers, attention_bwd=layers,
+                                  gemm=3 * layers), init=read, phase="scored")
+    ce_scale = [r["ce_scale"] for r in hf_run["rows"] if "ce_scale" in r]
+    emit("scored", case="from_hf_export", ce_scale=ce_scale)
+    if ce_scale != [1.0]:
+        raise AssertionError(f"from_hf_export: ce_scale {ce_scale}")
+    del hf_params, read
+
+    corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=0,
+                                  doc_len=150, query_len=12)
+    batches = -(-corpus.num_docs // SPLADE_BATCH)
+    want = _per_step(attention=layers * batches, gemm=2 * layers * batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        docs, queries = (os.path.join(tmp, f) for f in ("docs.tsv",
+                                                        "queries.tsv"))
+        _write_tsv(docs, corpus.doc_ids, corpus.doc_texts)
+        _write_tsv(queries, corpus.query_ids, corpus.query_texts)
+        out = os.path.join(tmp, "pools_splade.jsonl")
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        build_pools_main(["--method", "splade", "--run", run_dir, "--docs",
+                          docs, "--queries", queries, "--out", out,
+                          "--cutoff", str(SPLADE_CUTOFF), "--splade_terms",
+                          str(SPLADE_TERMS), "--encode_batch",
+                          str(SPLADE_BATCH), "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        with open(out) as f:
+            pools = [json.loads(line) for line in f]
+    # the first docs' activations, the card against the CPU
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=rc.max_q_tokens,
+                                 max_d_tokens=rc.max_d_tokens)
+    ids = torch.from_numpy(store.d_tokens[:SPLADE_CHECK_DOCS]).long()
+    mask = torch.from_numpy(store.d_mask[:SPLADE_CHECK_DOCS])
+    card = splade_activations(params, mcfg, ids.cuda(), mask.cuda()).cpu()
+    cpu = splade_activations(t5.tree_map(lambda t: t.cpu(), params), mcfg,
+                             ids, mask)
+    err = max_abs(card, cpu)
+    (cw, ct), (pw, pt) = (topk_stable(a, SPLADE_TERMS) for a in (card, cpu))
+    # a term in one top-k and not the other must sit within the tolerance
+    # of the other's k-th weight
+    outside, same = 0, []
+    for r in range(SPLADE_CHECK_DOCS):
+        on_card, on_cpu = set(ct[r].tolist()), set(pt[r].tolist())
+        outside += sum(int(cpu[r, t] < pw[r, -1] - SPLADE_ACT_ATOL)
+                       for t in on_card - on_cpu)
+        outside += sum(int(card[r, t] < cw[r, -1] - SPLADE_ACT_ATOL)
+                       for t in on_cpu - on_card)
+        same.append(len(on_card & on_cpu))
+    splade = dict(case="build_pools_splade", seconds=seconds,
+                  launches=launches, expected_launches=want,
+                  pools=len(pools), queries=corpus.num_queries,
+                  cutoff=SPLADE_CUTOFF, terms=SPLADE_TERMS,
+                  activations_vs_cpu_max_abs_err=err, tol=SPLADE_ACT_ATOL,
+                  topk_terms_shared=same, topk_swaps_beyond_tol=outside,
+                  nonzero_terms_per_doc=(card > 0).sum(dim=1).tolist(),
+                  nvidia_smi=smi)
+    emit("scored", **splade)
+    if launches != want or err > SPLADE_ACT_ATOL or outside:
+        raise AssertionError(f"build_pools splade: {splade}")
+    return {"export": fields, "hf_run": hf_run, "splade": splade}
+
+
+def phase_scored(smi: str, run_dir: str) -> dict:
+    """Phase 10: K3 at the bucket widths and the SPLADE query length; the
+    scored pool through ``cli.train.main`` (bf16 and int8_bf16 scoring),
+    its candidates against the CPU; the JAX bench's fused_scored with and
+    without the kernels beside ref_varlen; the HF export read back and
+    trained from; SPLADE pools."""
+    layers = t5.T5Config.base().num_layers
+    emit("scored", config="t5-base", vocab=32128, dtype="bfloat16",
+         candidates=SCORED_C, fused_scored_candidates=FS_C,
+         buckets=list(FS_BUCKETS), score_chunk=FS_CHUNK)
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    k3 = {"W64": _check_k3(g, "bucket_W64", FS_CHUNK, 64),
+          "W160": _check_k3(g, "bucket_W160", FS_CHUNK, 160),
+          "L24": _check_k3(g, "splade_query_L24", SPLADE_BATCH, 24)}
+    cli = _scored_cli(smi, layers)
+    vs_cpu = _scored_vs_cpu()
+    fs = _fused_scored(smi, layers)
+    hf = _hf_and_splade(smi, layers, run_dir)
+    emit("scored", seconds=time.perf_counter() - t0)
+    return {"k3": k3, "cli": cli, "vs_cpu": vs_cpu, "fused_scored": fs,
+            **hf, "launches": {
+                "scored": cli["run"]["launches"],
+                "scored_int8_bf16": cli["int8_bf16"]["launches"],
+                "fused_scored": fs["plain"]["launches"],
+                "fused_scored_flash_v3": fs["kernels"]["launches"],
+                "ref_varlen": fs["ref_varlen"]["launches"],
+                "from_hf_export": hf["hf_run"]["launches"],
+                "build_pools_splade": hf["splade"]["launches"]}}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -2433,7 +2983,8 @@ def main() -> int:
         f512 = phase_fused512(smi)
         dn = phase_dense(smi)
         ev = phase_evaluate(smi, run_dir)
-    cu = phase_curricula(smi)
+        cu = phase_curricula(smi)
+        sc = phase_scored(smi, run_dir)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -2445,7 +2996,7 @@ def main() -> int:
              "build_pools": dn["build_pools"]["launches"],
              "evaluate": ev["bf16"]["launches"],
              "evaluate_int8": ev["int8"]["launches"],
-             "curricula": cu["launches"]}
+             "curricula": cu["launches"], **sc["launches"]}
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -2463,7 +3014,10 @@ def main() -> int:
                L512_dk128=k["attention"]["L512_dk128"],
                train512_fp32_out=k["attention"]["train512_fp32_out"],
                train768_fp32_out=k["attention"]["train768_fp32_out"],
-               fused_self_attention=k["fused_self_attention"]),
+               fused_self_attention=k["fused_self_attention"],
+               fused_self_attention_bucket_W64=sc["k3"]["W64"],
+               fused_self_attention_bucket_W160=sc["k3"]["W160"],
+               fused_self_attention_splade_query_L24=sc["k3"]["L24"]),
         _entry("t5_attention_bwd", "t5_attention_bwd.cu",
                "ops/flash_v3.py:279", total["attention_bwd"],
                k["v3_backward"]["train"],
@@ -2554,6 +3108,33 @@ def main() -> int:
                 "step_ms_b")}
                for name in ("meta_cheap_ab", "meta_std_remat")},
             "meta_std_fd_max_abs_err": cu["meta_std_fd"]["max_abs_err"]},
+        "scored": {
+            "cli": {key: sc["cli"]["run"][key] for key in (
+                "steps_per_s", "neg_scored_per_s", "trained_negatives_per_s",
+                "pool_score_spread")},
+            "cli_int8_bf16_steps_per_s": sc["cli"]["int8_bf16"]["steps_per_s"],
+            "candidates_vs_cpu_max_abs_err": {
+                label: sc["vs_cpu"][label]["max_abs_err"]
+                for label in ("bf16", "int8_bf16")},
+            "candidates_int8_bf16_vs_bf16_on_card":
+                sc["vs_cpu"]["int8_bf16_vs_bf16_on_card"],
+            "fused_scored": {
+                label: {key: r[key] for key in (
+                    "steps_per_s", "neg_scored_per_s", "busy_ms",
+                    "idle_share") if key in r}
+                for label, r in sc["fused_scored"].items()
+                if label != "multiple_upper_bound"},
+            "bucketed_vs_full": {
+                label: {key: sc["fused_scored"][label]["bucketed_vs_full"][
+                    key] for key in ("max_abs_err", "order_positions_moved",
+                                     "discordant_candidate_pairs")}
+                for label in ("plain", "kernels")},
+            "fused_scored_multiple_upper_bound":
+                sc["fused_scored"]["multiple_upper_bound"],
+            "export_hf_equal": sc["export"]["equal"],
+            "splade": {key: sc["splade"][key] for key in (
+                "seconds", "pools", "activations_vs_cpu_max_abs_err",
+                "topk_terms_shared")}},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

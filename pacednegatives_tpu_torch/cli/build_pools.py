@@ -9,17 +9,24 @@ bm25`` (the default) searches the native lexical index on the host
 queries, and a ``DenseIndex`` answers them in batches of 64 queries with
 ``--topk pallas`` (K5 on the card) or ``--topk exact``.
 
-Usage (``--device``, read by ``--method dense``, defaults to cuda; there
-is no fallback to the CPU):
+Usage (``--device``, read by ``--method dense`` and ``splade``, defaults
+to cuda; there is no fallback to the CPU):
   python -m pacednegatives_tpu_torch.cli.build_pools \\
       --docs docs.tsv --queries queries.tsv --pairs pairs.tsv \\
       --out pools.jsonl --cutoff 1000
   python -m pacednegatives_tpu_torch.cli.build_pools --method dense \\
       --run runs/out --docs docs.tsv --queries queries.tsv \\
       --pairs pairs.tsv --out pools.jsonl --cutoff 1000 --topk pallas
+  python -m pacednegatives_tpu_torch.cli.build_pools --method splade \\
+      --run runs/out --docs docs.tsv --queries queries.tsv \\
+      --out pools.jsonl --cutoff 1000 --splade_terms 128
 ``pairs.tsv``: qid<TAB>doc_id_a rows (one positive per query); without it,
 doc_id_a is left empty for downstream joining (collate_dataset parity).
-``--method splade`` is not ported yet.
+``--method splade`` (compute_all_splade.py:28-30 parity): the run's
+encoder gives every doc and query its top ``--splade_terms`` vocab-space
+activations (models/splade.py, on ``--device``, ``--encode_batch`` rows at
+a time), and a quantized impact index on the host (index/sparse.py,
+``--quantize``) answers each query.
 """
 
 from __future__ import annotations
@@ -41,11 +48,7 @@ def main(argv=None) -> str:
     b = float(args.get("b", 0.75))
     pairs_path = args.get("pairs")
     method = args.get("method", "bm25")
-    if method == "splade":
-        raise NotImplementedError(
-            "--method splade needs models/splade.py and index/sparse.py, "
-            "not ported yet (ROADMAP.md slice R); use --method bm25 or dense")
-    if method not in ("bm25", "dense"):
+    if method not in ("bm25", "dense", "splade"):
         raise SystemExit(f"unknown method {method}")
 
     from pacednegatives_tpu_torch.data import TextCorpus
@@ -66,8 +69,10 @@ def main(argv=None) -> str:
             (qid, ix.search(qtext, k=cutoff, k1=k1, b=b)[0])
             for qid, qtext in zip(corpus.query_ids, corpus.query_texts)
         )
-    else:
+    elif method == "dense":
         pools_iter = _dense_pools(args, corpus, cutoff)
+    else:
+        pools_iter = _splade_pools(args, corpus, cutoff)
 
     n_written = n_skipped = 0
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
@@ -124,6 +129,45 @@ def _dense_pools(args: dict, corpus, cutoff: int):
         idx = idx.cpu().numpy()
         for row, qid in enumerate(corpus.query_ids[s:e]):
             yield qid, idx[row]
+
+
+def _splade_pools(args: dict, corpus, cutoff: int):
+    """A trained run's SPLADE activations (models/splade.py) on
+    ``--device`` feed a quantized impact index on the host
+    (index/sparse.py); yields (qid, doc rows hardest first)."""
+    import torch
+
+    from pacednegatives_tpu_torch.data import TokenizedStore
+    from pacednegatives_tpu_torch.index.sparse import SparseIndex
+    from pacednegatives_tpu_torch.models.splade import encode_corpus_sparse
+    from pacednegatives_tpu_torch.train.runner import load_run
+
+    run_dir = args.get("run")
+    if not run_dir:
+        raise SystemExit("--method splade needs --run <trained run dir>")
+    device = torch.device(args.get("device", "cuda"))
+    params, mcfg, tok, rc = load_run(run_dir, device=device)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=rc.max_q_tokens,
+                                 max_d_tokens=rc.max_d_tokens)
+    topk_terms = int(args.get("splade_terms", 128))
+    batch = int(args.get("encode_batch", 64))
+
+    def encode(tokens, mask):
+        w, t = encode_corpus_sparse(params, mcfg,
+                                    torch.from_numpy(tokens).to(device),
+                                    torch.from_numpy(mask).to(device),
+                                    k=topk_terms, batch_size=batch)
+        return w.cpu().numpy(), t.cpu().numpy()
+
+    d_w, d_t = encode(store.d_tokens, store.d_mask)
+    index = SparseIndex.build(
+        d_t, d_w, num_terms=mcfg.vocab_size,
+        quantize=args.get("quantize", "1") not in ("0", "false", "False"))
+    q_w, q_t = encode(store.q_tokens, store.q_mask)
+    for row, qid in enumerate(corpus.query_ids):
+        ids, _ = index.search(q_t[row], q_w[row],
+                              k=min(cutoff, corpus.num_docs))
+        yield qid, ids
 
 
 if __name__ == "__main__":

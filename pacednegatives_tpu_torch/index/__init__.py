@@ -1,4 +1,6 @@
-"""Retrieval indexes (the port of index/): the dense index on one device."""
+"""Retrieval indexes (the port of index/): the dense index on one device;
+``index/sparse.py`` (the quantized impact index of SPLADE pools) is a host
+copy of the JAX package's numpy module."""
 
 from pacednegatives_tpu_torch.index.dense import DenseIndex
 

@@ -55,10 +55,14 @@ _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, descending, ties to the lower position:
-    ``lax.top_k``'s order (torch.topk does not promise it on CUDA)."""
-    v, pos = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], pos[..., :k]
+    """Top-k along the last dim, descending, ties to the lower position and
+    -0 below +0: ``lax.top_k``'s order. A stable ``torch.sort`` holds -0
+    and +0 equal, and ``torch.topk`` promises no tie order on CUDA, so the
+    values and positions go through the merge's unique packed keys."""
+    pos = torch.arange(x.shape[-1], device=x.device).expand(x.shape)
+    top = torch.topk(pack_keys(x, pos), k, dim=-1, sorted=True).values
+    v, pos = unpack_keys(top)
+    return v.to(x.dtype), pos
 
 
 def _k_per_block(k: int, num_docs: int, block_n: int,

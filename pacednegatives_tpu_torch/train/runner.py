@@ -7,13 +7,17 @@ slot the difficulty names, or one binomial draw with online mining),
 ``lce`` (n sampled negatives) and the bilevel meta-weights ``meta-cheap``
 and ``meta-std`` (their own loop over the weight table's rows). With
 AdamW, ``grad_accum_steps`` optimizer steps accumulated by MultiSteps, on
-static pools or with online negative mining from a dense index
-(``mining="online"``: train/online.py, K6 over an int8 index with
-``quantize_index``); dense attention with the fused self-attention kernels
-(``flash_v3``), or chunked attention with the attention-core kernels
-(``flash_kernel``) and either residual dtype; an fp32 or bf16
-gradient-accumulation carry; ``remat`` with each of its policies,
-``dropout`` and ``ffn_custom_vjp``. The fields of ``_UNPORTED`` raise
+static pools, on candidates the model scores every step
+(``scored_pool``: train/scored_pool.py, lce only) or with online negative
+mining from a dense index (``mining="online"``: train/online.py, K6 over
+an int8 index with ``quantize_index``); from random weights or an HF
+checkpoint directory (``model=<dir>``: models/hf_import.py), written back
+out in HF format with ``export_hf`` (models/hf_export.py); dense attention
+with the fused self-attention kernels (``flash_v3``), or chunked attention
+with the attention-core kernels (``flash_kernel``) and either residual
+dtype; an fp32 or bf16 gradient-accumulation carry; ``remat`` with each of
+its policies, ``dropout`` and ``ffn_custom_vjp``. The fields of
+``_UNPORTED`` (the layer scan, not carried over) raise
 ``NotImplementedError`` naming their ROADMAP item at any other value, and
 the settings the meta loop does not read raise ``ValueError`` there
 (``_META_UNREAD``): nothing is silently ignored. ``microbatch_unroll``
@@ -136,11 +140,11 @@ class RunConfig:
     # reference's offline adhocRestructure, util.py:9-18, made online).
     # Requires curriculum family lce + static pools.
     scored_pool: int = 0
-    # "compute" (bf16) | "int8" (W8A8 dynamic, models/quant.py — 2x MXU
-    # peak for the scoring pass; rank fidelity tested)
+    # "compute" (the model's compute dtype) | "int8" | "int8_bf16" (the
+    # W8A8 forward of models/quant.py, fp32 or bf16 residual stream)
     scored_pool_dtype: str = "compute"
-    # rows per scored-pool scoring forward (chunked under lax.map so a big
-    # B*C never outgrows HBM in one call; 1024 L=188 rows fits a 16GB v5e)
+    # rows per scored-pool scoring forward (a loop over chunks, so a big
+    # B*C never holds its activations on the device at once)
     scored_pool_chunk: int = 1024
     pool_size: int = 64
     refresh_every: int = 200
@@ -178,30 +182,22 @@ class RunConfig:
 
 
 # (field, value that runs here, ROADMAP item) for every field whose other
-# values this slice does not port
+# values the port does not run
 _UNPORTED = (
-    ("scored_pool", 0, "slice P (model-in-the-loop negative selection)"),
     ("scan_layers", False, "'Not carried over' (lax.scan over layers)"),
     ("stacked_layers", False, "'Not carried over' (lax.scan over layers)"),
-    ("export_hf", False, "slice R (models/hf_export.py)"),
 )
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for any setting this slice does not run."""
+    """Raise NotImplementedError for any setting the port does not run."""
     for name, ok, item in _UNPORTED:
         if getattr(cfg, name) != ok:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
-                f"package yet (ROADMAP.md {item}); this slice runs "
+                f"{name}={getattr(cfg, name)!r} is not carried over to the "
+                f"PyTorch package (ROADMAP.md {item}); the port runs "
                 f"{name}={ok!r}"
             )
-    if cfg.model not in ("tiny", "small", "base"):
-        raise NotImplementedError(
-            f"model={cfg.model!r}: loading an HF checkpoint is not ported "
-            "yet (ROADMAP.md slice R, models/hf_import.py); use tiny, small "
-            "or base"
-        )
 
 
 def _device(device) -> torch.device:
@@ -231,15 +227,12 @@ def _build_tokenizer(cfg: RunConfig):
 
 
 def _build_model(cfg: RunConfig, tok, device: torch.device):
+    """Random weights from the seed for tiny / small / base, else the HF
+    checkpoint directory ``cfg.model``; either way with the run's compute
+    dtype, attention and remat settings."""
     from pacednegatives_tpu_torch.models.t5 import T5Config, init_params
 
-    mk = {
-        "tiny": lambda: T5Config.tiny(vocab_size=max(tok.vocab_size, 16)),
-        "small": T5Config.small,
-        "base": T5Config.base,
-    }[cfg.model]
-    mcfg = dataclasses.replace(
-        mk(), vocab_size=max(tok.vocab_size, 16),
+    kw = dict(
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
         remat=cfg.remat, remat_policy=cfg.remat_policy,
         attention_impl=cfg.attention_impl,
@@ -248,6 +241,20 @@ def _build_model(cfg: RunConfig, tok, device: torch.device):
         attn_residual_dtype=cfg.attn_residual_dtype,
         ffn_custom_vjp=cfg.ffn_custom_vjp,
     )
+    if cfg.model not in ("tiny", "small", "base"):
+        from pacednegatives_tpu_torch.models.hf_import import (
+            load_hf_checkpoint,
+        )
+
+        params, mcfg = load_hf_checkpoint(cfg.model, device)
+        return params, dataclasses.replace(mcfg, **kw)
+    mk = {
+        "tiny": lambda: T5Config.tiny(vocab_size=max(tok.vocab_size, 16)),
+        "small": T5Config.small,
+        "base": T5Config.base,
+    }[cfg.model]
+    mcfg = dataclasses.replace(mk(), vocab_size=max(tok.vocab_size, 16),
+                               **kw)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     return init_params(mcfg, gen, device), mcfg
 
@@ -490,6 +497,7 @@ def _maybe_resume(cfg: RunConfig, state):
 # reads (train/runner.py:488-534): the port refuses any other value there
 _META_UNREAD = (
     ("mining", "static"),
+    ("scored_pool", 0),
     ("microbatches", 1),
     ("dropout", False),
     ("grad_accum_dtype", "fp32"),
@@ -599,6 +607,10 @@ def run(cfg: RunConfig, device: torch.device | str = "cuda") -> dict:
         state = _run_paced(cfg, tok, store, triples, dc, mcfg, params, tx,
                            writer, opt_steps, device)
     save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
+    if cfg.export_hf:
+        from pacednegatives_tpu_torch.models.hf_export import save_pretrained
+
+        save_pretrained(state.params, mcfg, os.path.join(cfg.out_dir, "model"))
     writer.close()
     last = [h for h in writer.history if "loss" in h]
     return {
@@ -613,6 +625,9 @@ def _run_paced(cfg: RunConfig, tok, store, triples, dc, mcfg, params, tx,
     """Every curriculum but meta: the controller, the pair (or LCE) step
     and the training loop, on static pools or with online mining."""
     from pacednegatives_tpu_torch.train.loop import TrainLoop
+    from pacednegatives_tpu_torch.train.scored_pool import (
+        make_scored_pool_step,
+    )
     from pacednegatives_tpu_torch.train.state import init_train_state
     from pacednegatives_tpu_torch.train.step import (
         make_fused_step,
@@ -671,14 +686,23 @@ def _run_paced(cfg: RunConfig, tok, store, triples, dc, mcfg, params, tx,
             **common,
         )
     elif cfg.mining == "static":
-        if cfg.scored_pool > 0 and loss_kind != "lce":
-            raise ValueError(
-                "scored_pool requires an lce-family curriculum "
-                f"(n sampled negatives); got {cfg.curriculum!r}"
+        if cfg.scored_pool > 0:
+            if loss_kind != "lce":
+                raise ValueError(
+                    "scored_pool requires an lce-family curriculum "
+                    f"(n sampled negatives); got {cfg.curriculum!r}"
+                )
+            fused = make_scored_pool_step(
+                dc, step, controller, mcfg, n_neg_per_example=n,
+                candidates=cfg.scored_pool, rel_id=tok.true_id,
+                nrel_id=tok.false_id, score_dtype=cfg.scored_pool_dtype,
+                score_chunk_rows=cfg.scored_pool_chunk,
             )
+        else:
+            fused = make_fused_step(dc, step, controller, loss=loss_kind,
+                                    n_neg_per_example=n)
         loop = TrainLoop(
-            fused_step=make_fused_step(dc, step, controller, loss=loss_kind,
-                                       n_neg_per_example=n),
+            fused_step=fused,
             shuffle=cfg.shuffle,
             log_every_chunks=cfg.log_every_chunks,
             **common,

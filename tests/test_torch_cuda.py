@@ -194,8 +194,10 @@ def test_attention_raises_on_what_it_cannot_take(cuda):
         flash.flash_attention_forward(q, q, q, pos.double(), km)
 
 
-@pytest.mark.parametrize("L", [64, 100])
+@pytest.mark.parametrize("L", [64, 100, 24, 160])
 def test_fused_self_attention_matches_plain(cuda, L):
+    """K3 at the scored pool's bucket widths (64 and 160 among them) and
+    at the SPLADE query length L 24, below one 64-row tile."""
     B, D, H, dk = 2, 256, 4, 64
     inner = H * dk
     x = _randn(cuda, B, L, D)

@@ -2,7 +2,7 @@
 
 ``pacednegatives_tpu_torch/data/{tokenizer,corpus,pipeline,spm_export,
 triples,tools,streaming}.py``, ``utils/config.py``,
-``eval/{metrics,run_io,experiment}.py``, ``index/{porter,bm25}.py`` and
+``eval/{metrics,run_io,experiment}.py``, ``index/{porter,bm25,sparse}.py`` and
 ``cli/{dataset_tools,train_tokenizer,bm25_grid}.py`` and the training
 presets ``cli/train_{interp,level,eta,std}.py`` are copies, kept
 because the JAX package's ``__init__`` modules import JAX eagerly and the
@@ -33,7 +33,8 @@ COPIES = {"tokenizer.py": "data", "corpus.py": "data", "pipeline.py": "data",
           "spm_export.py": "data", "triples.py": "data", "config.py": "utils",
           "tools.py": "data", "streaming.py": "data", "metrics.py": "eval",
           "run_io.py": "eval", "experiment.py": "eval", "porter.py": "index",
-          "bm25.py": "index", "dataset_tools.py": "cli",
+          "bm25.py": "index", "sparse.py": "index",
+          "dataset_tools.py": "cli",
           "train_tokenizer.py": "cli", "bm25_grid.py": "cli",
           "train_interp.py": "cli", "train_level.py": "cli",
           "train_eta.py": "cli", "train_std.py": "cli"}

@@ -228,8 +228,10 @@ def _stable_sort_merge(cv, ci, k):
     """The merge before packed keys: a stable sort of the candidates in
     (block, rank) order."""
     nb, B, kpb = cv.shape
-    v, pos = mips.topk_stable(
-        torch.from_numpy(cv).transpose(0, 1).reshape(B, nb * kpb), k)
+    v, pos = torch.sort(
+        torch.from_numpy(cv).transpose(0, 1).reshape(B, nb * kpb), dim=-1,
+        descending=True, stable=True)
+    v, pos = v[:, :k], pos[:, :k]
     i = torch.gather(torch.from_numpy(ci).transpose(0, 1).reshape(
         B, nb * kpb), 1, pos)
     return v.numpy(), i.long().numpy()

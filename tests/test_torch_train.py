@@ -42,7 +42,7 @@ from pacednegatives_tpu_torch.train import (
     restore_checkpoint,
     save_checkpoint,
 )
-from pacednegatives_tpu_torch.train.runner import RunConfig, run
+from pacednegatives_tpu_torch.train.runner import RunConfig, _check_ported, run
 
 # optimizer and controller arithmetic: fp32 on both sides, a few roundings
 # apart (pow, sqrt, the global-norm sum order); the updates are O(lr) = 0.1,
@@ -365,10 +365,20 @@ def test_cli_train_main_on_cpu(tmp_path, capsys):
     ("export_hf", True), ("model", "/some/hf/dir"),
 ])
 def test_run_refuses_unported_settings(tmp_path, field, value):
+    """The layer scan is not carried over and raises, naming its ROADMAP
+    item. The scored pool (slice P), the HF export and an HF checkpoint
+    directory (slice R) are ported: the check lets them through, and a
+    directory that does not exist fails to load."""
     cfg = RunConfig(**{"model": "tiny", "out_dir": str(tmp_path),
                        field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        run(cfg, device="cpu")
+    if field == "scan_layers":
+        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+            run(cfg, device="cpu")
+        return
+    _check_ported(cfg)
+    if field == "model":
+        with pytest.raises(FileNotFoundError, match=value):
+            run(cfg, device="cpu")
 
 
 def test_run_never_falls_back_to_cpu(tmp_path, monkeypatch):

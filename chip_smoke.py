@@ -112,7 +112,26 @@ Phases, one JSON line each (any failure exits non-zero):
              for bit and trained from for 2 steps (ce_scale 1.0); and
              ``cli.build_pools.main --method splade`` on phase 5's run over
              phase 8's corpus (K3 384), the first docs' activations and
-             top terms against the CPU.
+             top terms against the CPU;
+11. distill - ``cli.mine_negatives.main`` (budget 1000) and
+             ``cli.teacher_scores.main`` over phase 8's corpus with one
+             judged positive a query (256 pairs), each run twice in this
+             process, byte for byte the same; ``cli.distill.main`` at
+             t5-base (its own config: bf16, remat ``dots``, dense) for 6
+             MarginMSE steps and 2 CE steps of 16 triples: finite losses,
+             every weight moved (but the decoder self-attention's q, k
+             and rel_bias, which MarginMSE gives an exact zero gradient),
+             no hand kernel launched, step ms; then ``make_distill_step``
+             with flash_v3 + fused_qkv at phase 5's prompt width (K3 = K4
+             = 12 a step): step 1 against the dense route (CE at the LCE
+             step's gates; MarginMSE within twice the dense bf16 route's
+             distance from the dense route in fp32), steps timed, two
+             steps traced by
+             ``utils.profiling.trace`` (the trace must name the hand
+             kernels); ``debug_nans`` on a clean dense step and on a NaN
+             teacher score (it must raise); ``cost_analysis`` of a dense
+             forward beside ``t5_forward_flops``; MFU against
+             ``device_peak_flops``.
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -136,9 +155,13 @@ import time
 import numpy as np
 import torch
 
+from pacednegatives_tpu_torch import distill as distill_pkg
 from pacednegatives_tpu_torch import kernels
 from pacednegatives_tpu_torch.cli.build_pools import main as build_pools_main
+from pacednegatives_tpu_torch.cli.distill import main as distill_main
 from pacednegatives_tpu_torch.cli.evaluate import main as evaluate_main
+from pacednegatives_tpu_torch.cli.mine_negatives import main as mine_main
+from pacednegatives_tpu_torch.cli.teacher_scores import main as teacher_main
 from pacednegatives_tpu_torch.cli.train import main as train_main
 from pacednegatives_tpu_torch.curriculum import (
     EtaController,
@@ -151,6 +174,12 @@ from pacednegatives_tpu_torch.data import (
 )
 from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
+from pacednegatives_tpu_torch.distill import TeacherBatcher, TeacherScores
+from pacednegatives_tpu_torch.distill.loader import load_triples_tsv
+from pacednegatives_tpu_torch.distill.train import (
+    init_distill_state,
+    make_distill_step,
+)
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.eval.run_io import read_trec_run
 from pacednegatives_tpu_torch.index import bm25
@@ -210,6 +239,7 @@ from pacednegatives_tpu_torch.train.scored_pool import (
     make_scored_pool_step,
     score_candidates,
 )
+from pacednegatives_tpu_torch.utils import profiling
 
 BF16_ULP_REL = 2.0**-7  # one bf16 ulp, relative to the largest magnitude
 B_SERVE, L_SERVE = 256, 188  # Reranker batch and t5-base prompt length
@@ -2950,6 +2980,388 @@ def phase_scored(smi: str, run_dir: str) -> dict:
                 "build_pools_splade": hf["splade"]["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: distillation
+# ---------------------------------------------------------------------------
+
+# phase 8's corpus with the first judged positive of each query (doc d is
+# relevant to query d % 256): 256 pairs, one mined negative each, from the
+# fused top 1000 of five lexical pipelines
+DISTILL_BUDGET = 1000
+DISTILL_BATCH, DISTILL_STEPS, DISTILL_CE_STEPS = 16, 6, 2
+# the kernel step: DISTILL_STEPS timed, then DISTILL_TRACED under the trace
+DISTILL_TRACED = 2
+# the hand kernels' CUDA functions a flash_v3 training step runs: K3's two
+# GEMMs and its core, K4's GEMM and its two backward passes
+DISTILL_TRACE_KERNELS = ("gemm_bf16_kernel", "t5_attention_fwd_kernel",
+                         "dq_kernel", "dkdv_kernel")
+# Step 1 under MarginMSE, each bf16 route against the dense route in fp32:
+# a CPU rehearsal (scripts/torch_distill_step_rehearsal.py: the kernels'
+# plain versions, 32 prompts of L 188, random weights) at width 128 / 2 + 2
+# layers gave the dense bf16 route per-leaf
+# ||bf16 - fp32|| / ||fp32|| of max 0.107 and median 0.052, the kernel
+# route 0.142 and 0.066 (1.33x, 1.27x); at width 256 / 4 + 4 layers 0.363
+# and 0.103 against 0.413 and 0.112 (1.14x, 1.09x); in fp32 the two routes
+# agree to 5e-6. The kernel route may lie within twice the dense route's
+# distance, on the worst leaf and the median; a routing or gradient fault
+# is O(1) on the leaves it touches. (CE, without the margin's cancellation,
+# gave 0.03-0.05 against each other, inside the LCE step's gates.)
+DISTILL_MARGIN_NOISE = 2.0
+
+
+def _distill_files(tmp: str) -> dict:
+    """Write phase 8's corpus and the pairs, then mine the triples and score
+    them under the lexical teachers through the port's CLIs, twice: host
+    code, so the second run must write the same bytes."""
+    corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=0,
+                                  doc_len=150, query_len=12)
+    files = {k: os.path.join(tmp, f"{k}.tsv")
+             for k in ("docs", "queries", "pairs")}
+    _write_tsv(files["docs"], corpus.doc_ids, corpus.doc_texts)
+    _write_tsv(files["queries"], corpus.query_ids, corpus.query_texts)
+    with open(files["pairs"], "w") as f:
+        f.writelines(f"q{q}\td{q}\n" for q in range(corpus.num_queries))
+    outs, seconds = [], []
+    for run in (1, 2):
+        triples = os.path.join(tmp, f"triples_{run}.tsv")
+        teacher = os.path.join(tmp, f"teacher_{run}.json")
+        t0 = time.perf_counter()
+        mine_main(["--docs", files["docs"], "--queries", files["queries"],
+                   "--pairs", files["pairs"], "--out", triples,
+                   "--budget", str(DISTILL_BUDGET)])
+        t1 = time.perf_counter()
+        teacher_main(["--docs", files["docs"], "--queries", files["queries"],
+                      "--triples", triples, "--out", teacher])
+        seconds.append({"mine_negatives_s": t1 - t0,
+                        "teacher_scores_s": time.perf_counter() - t1})
+        with open(triples, "rb") as f1, open(teacher, "rb") as f2:
+            outs.append((f1.read(), f2.read()))
+    same = outs[0] == outs[1]
+    ts = TeacherScores.load(os.path.join(tmp, "teacher_1.json"))
+    fields = dict(pairs=corpus.num_queries, budget=DISTILL_BUDGET,
+                  triples=outs[0][0].count(b"\n") - 1,
+                  teachers=ts.num_teachers, runs=seconds,
+                  native_bm25=bm25._lib() is not None, bytes_equal=same)
+    emit("distill", check="mine_and_teacher_scores", **fields)
+    if not (same and fields["triples"] == corpus.num_queries
+            and ts.num_teachers == 6):
+        raise AssertionError(f"distill mining / teacher scores: {fields}")
+    files.update(triples=os.path.join(tmp, "triples_1.tsv"),
+                 teacher=os.path.join(tmp, "teacher_1.json"))
+    return fields | {"files": files}
+
+
+@contextlib.contextmanager
+def _timed_distill_steps(times: list, losses: list, shapes: list):
+    """Time each step the CLI's ``make_distill_step`` builds (synchronised;
+    the step copies its batch to the card); keep its loss and its prompts'
+    shape."""
+    saved = distill_pkg.make_distill_step
+
+    def make(*args, **kw):
+        step = saved(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            shapes.append(tuple(batch["ids"].shape))
+            return state, metrics
+
+        return timed
+
+    distill_pkg.make_distill_step = make
+    try:
+        yield
+    finally:
+        distill_pkg.make_distill_step = saved
+
+
+def _distill_cli(smi: str, files: dict, objective: str, steps: int,
+                 tmp: str) -> dict:
+    """``cli.distill.main`` at t5-base on the card, counted: no hand kernel
+    (its config is dense with remat ``dots``), finite losses, every weight
+    moved from the CLI's seed-0 initialisation but those MarginMSE leaves
+    no gradient."""
+    out = os.path.join(tmp, f"distill_{objective}")
+    times, losses, shapes = [], [], []
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _timed_distill_steps(times, losses, shapes):
+        summary = distill_main([
+            "--docs", files["docs"], "--queries", files["queries"],
+            "--triples", files["triples"], "--teacher", files["teacher"],
+            "--model", "base", "--vocab_size", "32128",
+            "--objective", objective, "--batch_size", str(DISTILL_BATCH),
+            "--total_steps", str(DISTILL_BATCH * steps), "--out_dir", out,
+            "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    final = torch.load(os.path.join(out, "final", CHECKPOINT_FILE),
+                       map_location="cuda", weights_only=True)["params"]
+    init = t5.flatten_params(t5.init_params(
+        t5.T5Config.base(), torch.Generator(device="cuda").manual_seed(0),
+        "cuda"))
+    unchanged = sorted(k for k in init if torch.equal(final[k], init[k]))
+    # MarginMSE reads the first label position alone, which attends to
+    # itself alone in the decoder: a softmax over one key, so the decoder
+    # self-attention's q, k and rel_bias get an exact zero gradient there
+    frozen = sorted(k for k in init if objective == "margin_mse"
+                    and k.startswith("decoder.") and ".self_attn." in k
+                    and k.rsplit(".", 1)[1] in ("q", "k", "rel_bias"))
+    step_ms = statistics.median(times[1:])
+    fields = dict(
+        case=f"cli_{objective}", steps=summary["steps"], seconds=seconds,
+        prompts_per_step=shapes[0][0], prompt_len=shapes[0][1],
+        step_ms_all=times, median_step_ms_2_on=step_ms,
+        pairs_per_s=DISTILL_BATCH / (step_ms / 1e3), losses=losses,
+        launches=launches, leaves_changed=len(init) - len(unchanged),
+        leaves=len(init), leaves_unchanged=unchanged,
+        expected_unchanged=frozen, nvidia_smi=smi)
+    emit("distill", **fields)
+    if not (summary["steps"] == steps == len(losses)
+            and set(shapes) == {(2 * DISTILL_BATCH, shapes[0][1])}
+            and np.isfinite(losses).all() and unchanged == frozen
+            and launches == _per_step()):
+        raise AssertionError(f"distill cli {objective}: {fields}")
+    return fields
+
+
+def _mu_rel(a: dict, b: dict) -> dict:
+    """Per leaf ||a - b|| / ||b|| over b's nonzero leaves: max, its leaf,
+    median."""
+    rel = {k: ((a[k] - b[k]).norm() / b[k].norm()).item()
+           for k in b if b[k].norm() > 0}
+    worst = max(rel, key=rel.get)
+    return {"max": rel[worst], "worst_leaf": worst,
+            "median": statistics.median(rel.values()), "leaves": len(rel)}
+
+
+def _distill_ab(smi: str, params: dict, batch: dict, tok, per_step: dict
+                ) -> dict:
+    """Step 1 of ``make_distill_step`` with the kernels (flash_v3 +
+    fused_qkv, bf16) against the dense route (bf16) on the same weights and
+    batch, and for MarginMSE both against the dense route in fp32; AdamW's
+    first moment after it (0.1 x the clipped gradient, lr(0) = 0) leaf by
+    leaf. CE is held to the LCE step's gates. MarginMSE's gradient is a
+    difference of two prompts' nearly equal gradients at random weights,
+    so bf16 rounding alone moves it by much more (DISTILL_MARGIN_NOISE):
+    the kernel route must lie within a factor of the dense bf16 route's own
+    distance from fp32."""
+    out = {}
+    for objective in ("margin_mse", "ce"):
+        runs = {}
+        cases = [("kernels", _train_cfg(True)), ("dense", _train_cfg(False))]
+        if objective == "margin_mse":
+            cases.append(("dense_fp32", dataclasses.replace(
+                _train_cfg(False), dtype=torch.float32)))
+        for label, cfg in cases:
+            tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+            step = make_distill_step(cfg, tx, objective, rel_id=tok.true_id,
+                                     nrel_id=tok.false_id)
+            before = _launches()
+            state, metrics = step(init_distill_state(params, tx), batch)
+            torch.cuda.synchronize()
+            used = {k: v - before[k] for k, v in _launches().items()}
+            runs[label] = (metrics["loss"].item(),
+                           t5.flatten_params(state.opt_state.mu), used)
+            del state
+        loss = {label: r[0] for label, r in runs.items()}
+        loss_rel = abs(loss["kernels"] - loss["dense"]) / abs(loss["dense"])
+        vs_dense = _mu_rel(runs["kernels"][1], runs["dense"][1])
+        fields = dict(
+            case=f"step1_distill_{objective}_flash_v3_vs_dense",
+            losses=loss, loss_rel_err=loss_rel, loss_tol=STEP_LOSS_RTOL,
+            grad_rel_l2_max=vs_dense["max"],
+            grad_rel_l2_worst_leaf=vs_dense["worst_leaf"],
+            grad_rel_l2_median=vs_dense["median"], leaves=vs_dense["leaves"],
+            launches={label: r[2] for label, r in runs.items()},
+            expected_launches_kernels=per_step, nvidia_smi=smi)
+        ok = (runs["kernels"][2] == per_step and loss_rel <= STEP_LOSS_RTOL
+              and all(r[2] == _per_step() for label, r in runs.items()
+                      if label != "kernels"))
+        if objective == "ce":
+            fields.update(grad_tol=STEP_GRAD_REL_L2,
+                          grad_median_tol=STEP_GRAD_REL_L2_MEDIAN)
+            ok = ok and (vs_dense["max"] <= STEP_GRAD_REL_L2
+                         and vs_dense["median"] <= STEP_GRAD_REL_L2_MEDIAN)
+        else:
+            ref = runs["dense_fp32"][1]
+            kern = _mu_rel(runs["kernels"][1], ref)
+            floor = _mu_rel(runs["dense"][1], ref)
+            fields.update(kernels_vs_fp32=kern, dense_vs_fp32=floor,
+                          noise_factor=DISTILL_MARGIN_NOISE)
+            ok = ok and (kern["max"] <= DISTILL_MARGIN_NOISE * floor["max"]
+                         and kern["median"]
+                         <= DISTILL_MARGIN_NOISE * floor["median"])
+        emit("distill", **fields)
+        if not ok:
+            raise AssertionError(f"distill step 1 {objective}: {fields}")
+        out[objective] = fields
+    return out
+
+
+def _distill_kernel_steps(smi: str, params: dict, batcher, tok,
+                          per_step: dict, tmp: str) -> dict:
+    """The kernel step on the triples' batches in turn: DISTILL_STEPS timed
+    (synchronised), then DISTILL_TRACED under ``utils.profiling.trace``,
+    whose trace file must name the hand kernels' CUDA functions; launches
+    counted over all of them. The idle share is the traced steps' device
+    busy time over the untraced steps' median (the profiler slows the
+    host several times over)."""
+    cfg = _train_cfg(True)
+    tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+    step = make_distill_step(cfg, tx, "margin_mse", rel_id=tok.true_id,
+                             nrel_id=tok.false_id)
+    state = init_distill_state(params, tx)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                batcher.get_batch(i % batcher.num_batches).items()}
+               for i in range(DISTILL_STEPS + DISTILL_TRACED)]
+    log_dir = os.path.join(tmp, "trace")
+    torch.cuda.synchronize()
+    _zero_launches()
+    times, losses = [], []
+    for batch in batches[:DISTILL_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir) as prof:
+        for batch in batches[DISTILL_STEPS:]:
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3 / DISTILL_TRACED
+    launches = _launches()
+    steps = DISTILL_STEPS + DISTILL_TRACED
+    want = {k: n * steps for k, n in per_step.items()}
+    (trace_file,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, trace_file)) as f:
+        text = f.read()
+    named = {name: name in text for name in DISTILL_TRACE_KERNELS}
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    step_ms = statistics.median(times[1:])
+    rows = batches[0]["ids"].shape
+    fields = dict(
+        case="flash_v3_step", steps=steps, prompts_per_step=rows[0],
+        prompt_len=rows[1], step_ms_all=times, median_step_ms_2_on=step_ms,
+        pairs_per_s=DISTILL_BATCH / (step_ms / 1e3), losses=losses,
+        traced_step_ms=traced_ms, busy_ms=busy / DISTILL_TRACED,
+        idle_share=1.0 - busy / DISTILL_TRACED / step_ms,
+        trace_file=trace_file, trace_mib=len(text) / 2**20,
+        trace_names_kernels=named, launches=launches,
+        expected_launches=want, nvidia_smi=smi)
+    emit("distill", **fields)
+    if not (launches == want and all(named.values())
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"distill kernel steps: {fields}")
+    return fields
+
+
+def _distill_debug_nans(params: dict, batch: dict, tok) -> dict:
+    """``debug_nans`` around a dense step: a clean batch passes, a batch
+    with one NaN teacher score raises ``FloatingPointError``."""
+    tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+    step = make_distill_step(_train_cfg(False), tx, "margin_mse",
+                             rel_id=tok.true_id, nrel_id=tok.false_id)
+    t0 = time.perf_counter()
+    with profiling.debug_nans():
+        _, metrics = step(init_distill_state(params, tx), batch)
+    clean_s = time.perf_counter() - t0
+    bad = dict(batch, teachers=batch["teachers"].clone())
+    bad["teachers"][0, 0] = float("nan")
+    raised = None
+    with profiling.debug_nans():
+        try:
+            step(init_distill_state(params, tx), bad)
+        except FloatingPointError as e:
+            raised = str(e)
+    fields = dict(check="debug_nans", clean_loss=metrics["loss"].item(),
+                  clean_step_s=clean_s, nan_batch_raised=raised)
+    emit("distill", **fields)
+    if raised is None or not np.isfinite(fields["clean_loss"]):
+        raise AssertionError(f"debug_nans: {fields}")
+    return fields
+
+
+def phase_distill(smi: str) -> dict:
+    """Phase 11: mining and teacher scores (host CLIs), ``cli.distill.main``
+    at t5-base for MarginMSE and CE, the kernel step against dense, timed
+    and traced, ``debug_nans``, ``cost_analysis`` and MFU."""
+    layers = t5.T5Config.base().num_layers
+    emit("distill", config="t5-base", vocab=32128, dtype="bfloat16",
+         batch=DISTILL_BATCH, steps=DISTILL_STEPS, ce_steps=DISTILL_CE_STEPS)
+    t_phase = time.perf_counter()
+    # the distill step with flash_v3: K3 and K4 once per encoder layer;
+    # GEMMs 2 + 1 a layer
+    per_step = _per_step(attention=layers, attention_bwd=layers,
+                         gemm=3 * layers)
+    with tempfile.TemporaryDirectory() as tmp:
+        mined = _distill_files(tmp)
+        files = mined.pop("files")
+        cli = {"margin_mse": _distill_cli(smi, files, "margin_mse",
+                                          DISTILL_STEPS, tmp),
+               "ce": _distill_cli(smi, files, "ce", DISTILL_CE_STEPS, tmp)}
+        tok = HashTokenizer(vocab_size=32128)
+        corpus = TextCorpus.from_tsv(files["docs"], files["queries"])
+        store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
+                                     max_d_tokens=160)
+        batcher = TeacherBatcher(load_triples_tsv(files["triples"]), corpus,
+                                 store, TeacherScores.load(files["teacher"]),
+                                 DISTILL_BATCH)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in batcher.get_batch(0).items()}
+        params = t5.init_params(t5.T5Config.base(),
+                                torch.Generator(device="cuda").manual_seed(0),
+                                "cuda")
+        ab = _distill_ab(smi, params, batch, tok, per_step)
+        kern = _distill_kernel_steps(smi, params, batcher, tok, per_step,
+                                     tmp)
+    nans = _distill_debug_nans(params, batch, tok)
+
+    # the dispatched ops' count of one dense forward beside the analytic
+    # model FLOPs; MFU of the steps on the card's bf16 peak
+    dense = _train_cfg(False)
+    n, L = batch["ids"].shape
+    with torch.no_grad():
+        cost = profiling.cost_analysis(t5.forward_logits, params, dense,
+                                       batch["ids"], batch["labels"],
+                                       batch["mask"])
+    model_fwd = profiling.t5_forward_flops(dense, n, L, 2)
+    peak = profiling.device_peak_flops()
+
+    def mfu(r: dict) -> float | None:
+        flops = profiling.t5_step_flops(dense, r["prompts_per_step"],
+                                        r["prompt_len"], 2)
+        return (None if peak is None
+                else flops / (r["median_step_ms_2_on"] / 1e3) / peak)
+
+    fields = dict(
+        check="cost_and_mfu", forward_counted_flops=cost["flops"],
+        forward_bytes_accessed_unfused=cost["bytes_accessed"],
+        forward_model_flops=model_fwd,
+        counted_over_model=cost["flops"] / model_fwd, peak_flops=peak,
+        mfu_flash_v3_step=mfu(kern),
+        mfu_cli_margin_mse=mfu(cli["margin_mse"]),
+        nvidia_smi=smi)
+    emit("distill", **fields)
+    emit("distill", seconds=time.perf_counter() - t_phase)
+    return {"mined": mined, "cli": cli, "step1": ab, "kernels": kern,
+            "debug_nans": nans, "cost": fields, "launches": {
+                "distill_cli": {k: cli["margin_mse"]["launches"][k]
+                                + cli["ce"]["launches"][k] for k in COUNTED},
+                "distill_flash_v3": kern["launches"]}}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -2985,6 +3397,7 @@ def main() -> int:
         ev = phase_evaluate(smi, run_dir)
         cu = phase_curricula(smi)
         sc = phase_scored(smi, run_dir)
+    di = phase_distill(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -2996,7 +3409,8 @@ def main() -> int:
              "build_pools": dn["build_pools"]["launches"],
              "evaluate": ev["bf16"]["launches"],
              "evaluate_int8": ev["int8"]["launches"],
-             "curricula": cu["launches"], **sc["launches"]}
+             "curricula": cu["launches"], **sc["launches"],
+             **di["launches"]}
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -3135,6 +3549,21 @@ def main() -> int:
             "splade": {key: sc["splade"][key] for key in (
                 "seconds", "pools", "activations_vs_cpu_max_abs_err",
                 "topk_terms_shared")}},
+        "distill": {
+            "mine_and_teacher_s": di["mined"]["runs"][0],
+            **{f"cli_{obj}": {key: r[key] for key in (
+                "median_step_ms_2_on", "pairs_per_s", "losses")}
+               for obj, r in di["cli"].items()},
+            "flash_v3_step": {key: di["kernels"][key] for key in (
+                "median_step_ms_2_on", "pairs_per_s", "busy_ms",
+                "idle_share")},
+            **{f"step1_{obj}": {key: r[key] for key in (
+                "loss_rel_err", "grad_rel_l2_max", "grad_rel_l2_median",
+                "kernels_vs_fp32", "dense_vs_fp32") if key in r}
+               for obj, r in di["step1"].items()},
+            **{key: di["cost"][key] for key in (
+                "counted_over_model", "mfu_flash_v3_step",
+                "mfu_cli_margin_mse")}},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

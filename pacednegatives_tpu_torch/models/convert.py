@@ -20,6 +20,8 @@ the curriculum's state, whichever controller made it (``EtaState`` with
 its own optimizer state, ``InterpState``, ``LevelState``, ``ContrastState``
 or the meta table's ``MetaState``), so a run the JAX package started can
 continue in the port, and tests can start both packages from one state.
+``distill_state_from_jax`` does the same for distillation's
+``DistillState`` (params, optimizer state, step).
 
 Nothing here imports JAX: trees come in as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side).
@@ -180,3 +182,13 @@ def train_state_from_jax(state, *, seed: int = 42,
         generator=torch.Generator(device=device).manual_seed(seed),
         dropout_generator=torch.Generator().manual_seed(seed),
     )
+
+
+def distill_state_from_jax(state, device: torch.device | str = "cpu"):
+    """A JAX ``DistillState`` with numpy leaves -> the port's on
+    ``device``: params, the optimizer's state and the step."""
+    from pacednegatives_tpu_torch.distill.train import DistillState
+
+    return DistillState(params=params_from_jax(state.params, device),
+                        opt_state=_opt_state(state.opt_state, device),
+                        step=int(np.asarray(state.step)))

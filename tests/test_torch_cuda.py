@@ -20,6 +20,11 @@ from pacednegatives_tpu_torch.curriculum import EtaController
 from pacednegatives_tpu_torch.data import HashTokenizer, TextCorpus, TokenizedStore
 from pacednegatives_tpu_torch.data.device_corpus import DeviceCorpus
 from pacednegatives_tpu_torch.data.triples import TripletStore
+from pacednegatives_tpu_torch.distill import TeacherBatcher, TeacherScores
+from pacednegatives_tpu_torch.distill.train import (
+    init_distill_state,
+    make_distill_step,
+)
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models import quant
@@ -447,6 +452,66 @@ def test_train_step_kernels_match_dense(cuda):
     rel = [((mu_on[k] - b).norm() / b.norm()).item()
            for k, b in mu_off.items() if b.norm() > 0]
     assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05
+
+
+def _mu_rel(a: dict, b: dict) -> list:
+    return [((a[k] - b[k]).norm() / b[k].norm()).item()
+            for k in b if b[k].norm() > 0]
+
+
+@pytest.mark.parametrize("objective", ["ce", "margin_mse"])
+def test_distill_step_kernels_match_dense(cuda, objective):
+    """One distillation step at a small width: flash_v3 (K3 + K4 once per
+    encoder layer) against the dense route on the same weights and batch,
+    both bf16. CE at the LCE step's tolerances; MarginMSE, whose gradient
+    cancels between the pos and neg prompts at random weights, within twice
+    the dense bf16 route's own distance from the dense route in fp32
+    (chip_smoke.py's DISTILL_MARGIN_NOISE)."""
+    tok = HashTokenizer(vocab_size=512)
+    corpus = TextCorpus.synthetic(num_docs=32, num_queries=8, seed=0,
+                                  doc_len=60, query_len=8)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=12,
+                                 max_d_tokens=60)
+    rng = np.random.default_rng(0)
+    triples = [{"qid": f"q{i}", "doc_id_a": f"d{i}", "doc_id_b": f"d{i + 8}"}
+               for i in range(8)]
+    teacher = TeacherScores({str(t): {
+        r["qid"]: {r["doc_id_a"]: float(rng.random()),
+                   r["doc_id_b"]: float(rng.random())} for r in triples}
+        for t in range(3)})
+    batch = TeacherBatcher(triples, corpus, store, teacher,
+                           batch_size=8).get_batch(0)
+    cfg0 = t5.T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                       num_heads=2, num_layers=2, num_decoder_layers=2,
+                       dtype=torch.bfloat16)
+    params = t5.init_params(cfg0, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    out = {}
+    for label, cfg in (("kernels", dataclasses.replace(cfg0, flash_v3=True)),
+                       ("dense", cfg0),
+                       ("fp32", dataclasses.replace(cfg0,
+                                                    dtype=torch.float32))):
+        tx = make_optimizer(1e-2, total_steps=8, warmup_steps=1)
+        step = make_distill_step(cfg, tx, objective, rel_id=tok.true_id,
+                                 nrel_id=tok.false_id)
+        before = (flash.flash_attention_forward.launches,
+                  flash.attention_backward.launches)
+        state, metrics = step(init_distill_state(params, tx), batch)
+        torch.cuda.synchronize()
+        assert (flash.flash_attention_forward.launches - before[0],
+                flash.attention_backward.launches - before[1]) == \
+            ((2, 2) if label == "kernels" else (0, 0))
+        out[label] = (metrics["loss"].item(), t5.flatten_params(
+            state.opt_state.mu))
+    (l_on, mu_on), (l_off, mu_off), (_, mu_ref) = out.values()
+    assert np.isfinite(l_on) and abs(l_on - l_off) <= 1e-2 * abs(l_off)
+    if objective == "ce":
+        rel = _mu_rel(mu_on, mu_off)
+        assert max(rel) <= 0.15 and float(np.median(rel)) <= 0.05
+    else:
+        kern, floor = _mu_rel(mu_on, mu_ref), _mu_rel(mu_off, mu_ref)
+        assert max(kern) <= 2.0 * max(floor)
+        assert np.median(kern) <= 2.0 * np.median(floor)
 
 
 def _core_bwd_inputs(g, B, H, Lq, Lk, dk):

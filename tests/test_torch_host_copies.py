@@ -3,8 +3,11 @@
 ``pacednegatives_tpu_torch/data/{tokenizer,corpus,pipeline,spm_export,
 triples,tools,streaming}.py``, ``utils/config.py``,
 ``eval/{metrics,run_io,experiment}.py``, ``index/{porter,bm25,sparse}.py`` and
-``cli/{dataset_tools,train_tokenizer,bm25_grid}.py`` and the training
-presets ``cli/train_{interp,level,eta,std}.py`` are copies, kept
+``cli/{dataset_tools,train_tokenizer,bm25_grid}.py``, the training
+presets ``cli/train_{interp,level,eta,std}.py``, distillation's host side
+``distill/{teacher,miner,loader,__init__}.py`` with
+``cli/{teacher_scores,mine_negatives}.py``, and
+``data/ir_datasets_adapter.py`` are copies, kept
 because the JAX package's ``__init__`` modules import JAX eagerly and the
 port imports nothing of the JAX package. Each copy must equal its original
 except for import lines, and produce the same ids, masks and lengths. The
@@ -37,7 +40,11 @@ COPIES = {"tokenizer.py": "data", "corpus.py": "data", "pipeline.py": "data",
           "dataset_tools.py": "cli",
           "train_tokenizer.py": "cli", "bm25_grid.py": "cli",
           "train_interp.py": "cli", "train_level.py": "cli",
-          "train_eta.py": "cli", "train_std.py": "cli"}
+          "train_eta.py": "cli", "train_std.py": "cli",
+          "teacher.py": "distill", "miner.py": "distill",
+          "loader.py": "distill", "__init__.py": "distill",
+          "teacher_scores.py": "cli", "mine_negatives.py": "cli",
+          "ir_datasets_adapter.py": "data"}
 
 
 @pytest.mark.parametrize("name", list(COPIES))
@@ -119,7 +126,10 @@ def test_port_imports_without_jax():
     assert {f"pacednegatives_tpu_torch.{m}" for m in (
         "curriculum.interp", "curriculum.level", "curriculum.contrast",
         "curriculum.meta", "cli.sweep", "cli.train_interp",
-        "cli.train_level", "cli.train_eta", "cli.train_std")} <= set(modules)
+        "cli.train_level", "cli.train_eta", "cli.train_std", "distill",
+        "distill.train", "cli.distill", "cli.teacher_scores",
+        "cli.mine_negatives", "utils.profiling",
+        "data.ir_datasets_adapter")} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -1,7 +1,8 @@
 """The user journey through the port's CLIs on the CPU, as
-tests/test_user_journey.py runs the JAX package's (its steps 1-4): train a
-tokenizer, build BM25 pools, train with the LCE curriculum, evaluate
-against the BM25 baseline. Then the end-to-end quality check: each package
+tests/test_user_journey.py runs the JAX package's: train a tokenizer,
+build BM25 pools, train with the LCE curriculum, evaluate against the BM25
+baseline, then distil (mine triples, score them under the lexical
+teachers, train the tiny model with MarginMSE). Then the end-to-end quality check: each package
 trains the tiny model from the same seeds on the same pools and reranks
 the same held-out queries; the port's mean MRR@10 over the seeds must lie
 within the JAX seeds' spread (their minimum to their maximum).
@@ -11,6 +12,7 @@ to query d % 32. Queries 0-23 give the training pairs and pools, queries
 24-31 are held out and judged.
 """
 
+import json
 import os
 
 import numpy as np
@@ -19,7 +21,10 @@ import pytest
 from pacednegatives_tpu.cli import evaluate as jevaluate
 from pacednegatives_tpu.cli import train as jtrain
 from pacednegatives_tpu_torch.cli import build_pools as tpools
+from pacednegatives_tpu_torch.cli import distill as tdistill
 from pacednegatives_tpu_torch.cli import evaluate as tevaluate
+from pacednegatives_tpu_torch.cli import mine_negatives as tmine
+from pacednegatives_tpu_torch.cli import teacher_scores as tteach
 from pacednegatives_tpu_torch.cli import train as ttrain
 from pacednegatives_tpu_torch.cli import train_tokenizer as ttok
 from pacednegatives_tpu_torch.data import TextCorpus
@@ -104,6 +109,28 @@ def test_full_journey(workspace):
     for name in ("results.csv", "perqueryresults.csv", "bm25.run",
                  "run.run"):
         assert os.path.exists(os.path.join(out, name)), name
+
+    # 5. distillation chain: mine -> teacher scores -> distill
+    triples_tsv = str(d / "triples.tsv")
+    tmine.main(["--docs", paths["docs"], "--queries", paths["queries"],
+                "--pairs", paths["pairs"], "--out", triples_tsv,
+                "--budget", "16"])
+    teacher = str(d / "teacher.json")
+    tteach.main(["--docs", paths["docs"], "--queries", paths["queries"],
+                 "--triples", triples_tsv, "--out", teacher])
+    dsum = tdistill.main([
+        "--docs", paths["docs"], "--queries", paths["queries"],
+        "--triples", triples_tsv, "--teacher", teacher, "--model", "tiny",
+        "--vocab_size", "300", "--tokenizer", tok_path,
+        "--objective", "margin_mse", "--total_steps", "16",
+        "--batch_size", "4", "--out_dir", str(d / "distill"),
+        "--device", "cpu",
+    ])
+    assert dsum["steps"] == 4
+    with open(str(d / "distill" / "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert any(np.isfinite(line.get("loss", np.nan)) for line in lines)
+    assert os.path.exists(str(d / "distill" / "final" / "state.pt"))
 
 
 def _mrr_at_10(run_file: str, qrels_path: str) -> float:

@@ -131,7 +131,27 @@ Phases, one JSON line each (any failure exits non-zero):
              kernels); ``debug_nans`` on a clean dense step and on a NaN
              teacher score (it must raise); ``cost_analysis`` of a dense
              forward beside ``t5_forward_flops``; MFU against
-             ``device_peak_flops``.
+             ``device_peak_flops``;
+12. parallel - phase 5's step on pairs 0..15 over ranks (the port's
+             ``parallel/``): (a) under an NCCL mesh of one rank in this
+             process, bit for bit the step without a mesh (K3 = K4 = 12),
+             and a one-shard int8 index (phase 7b's 16,384 docs) bit for
+             bit the unsharded K6 top-k; (b) 4 gloo ranks in processes of
+             their own sharing the card (``--parallel-rank``; they load
+             phase 2's build), a dp2 x seq2 mesh with
+             ``negative_parallel`` (in the port the same row split as
+             dp4), then 2 of
+             them, dp2 and a 2-shard K6 index: each step against the one
+             process's at phase 5's gates, the same state on every rank,
+             K3 = K4 = 12 a rank, peak MiB a rank; the index one
+             process's up to near-tie swaps; (c) phase 7b's online setting
+             with ``OverlappedRefresher`` on a side stream of the card:
+             the slices bit for bit the serial refresh, ``start()``'s
+             share of a refresh, 8 steps beside a refresh against the
+             steps then the refresh (seconds, launches), a profiled window
+             (the side stream's K1 beside the main stream's kernels), and
+             the loop's swap one chunk after the serial loop's; (d) with
+             two cards, (b)'s dp2 over NCCL, else "not run: 1 card".
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -143,6 +163,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import datetime
 import gc
 import json
 import os
@@ -183,6 +204,7 @@ from pacednegatives_tpu_torch.distill.train import (
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.eval.run_io import read_trec_run
 from pacednegatives_tpu_torch.index import bm25
+from pacednegatives_tpu_torch.index.dense import DenseIndex
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
 from pacednegatives_tpu_torch.models.hf_import import load_hf_checkpoint
@@ -224,6 +246,11 @@ from pacednegatives_tpu_torch.ops.mips import (
     topk_stable,
 )
 from pacednegatives_tpu_torch.optim import tree_leaves
+from pacednegatives_tpu_torch.parallel import MeshConfig, create_mesh
+from pacednegatives_tpu_torch.parallel.collectives import gather_batch
+from pacednegatives_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+)
 from pacednegatives_tpu_torch.train import (
     init_train_state,
     make_fused_step,
@@ -233,6 +260,13 @@ from pacednegatives_tpu_torch.train import (
     pair_index_stream,
 )
 from pacednegatives_tpu_torch.train.loop import CHECKPOINT_FILE, MetricWriter
+from pacednegatives_tpu_torch.train.online import (
+    OnlineMiningConfig,
+    OnlineMiningLoop,
+    make_online_fused_step,
+    make_refresh_fn,
+)
+from pacednegatives_tpu_torch.train.overlap import OverlappedRefresher
 from pacednegatives_tpu_torch.train.runner import load_run
 from pacednegatives_tpu_torch.train.scored_pool import (
     balanced_slots,
@@ -3362,6 +3396,497 @@ def phase_distill(smi: str) -> dict:
                 "distill_flash_v3": kern["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: more than one rank, and the overlapped refresh
+# ---------------------------------------------------------------------------
+
+# The ranks' step: phase 5's preset (t5-base, bf16, flash_v3 + fused_qkv)
+# on pairs 0..15, every rank drawing the negatives with a generator seeded
+# PARALLEL_SEED; held against one process's step at phase 5's gates (the
+# split moves bf16 roundings: rows per GEMM, the gradient's sum order).
+PARALLEL_SEED = 5
+# (b) the ranks share the one card over gloo: 4 for dp2 x seq2 negative
+# parallelism, then 2 of them for dp2 and the 2-shard K6 index
+RANKS_TIMEOUT_S = 420
+# (c) the overlapped refresh over phase 7b's corpus and int8 index: a
+# window of OVERLAP_WINDOW_STEPS online steps beside one refresh (serial:
+# the steps, then the refresh), and a profiled window of
+# OVERLAP_TRACED_STEPS; the loop's swap with a refresh every 2 steps,
+# chunks of 1 and a delay of 1 chunk, over OVERLAP_LOOP_STEPS
+OVERLAP_WINDOW_STEPS = 8
+OVERLAP_TRACED_STEPS = 3
+OVERLAP_LOOP_STEPS = 4
+# start() enqueues the params' snapshot and hands the encode to a thread:
+# its host time is a small part of the refresh's
+START_FRACTION_MAX = 0.1
+REFRESH_KERNEL = "t5_attention_fwd_kernel"
+MAIN_KERNELS = ("t5_attention_fwd_kernel", "dq_kernel", "dkdv_kernel",
+                "mips_scores_kernel", "topk_segments_kernel")
+
+
+def _rank_step(env: tuple, mesh=None, negative_parallel: bool = False):
+    """One fused LCE step of phase 5's preset on pairs 0..15, under
+    ``mesh`` when given: (loss, flat AdamW first moment, launches)."""
+    cfg, tok, dc, params, ctrl = env
+    # no clipping: the first moment is then 0.1 x the global gradient, and
+    # a gradient off by a factor (the world size) shows in it
+    tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1, grad_clip=None)
+    step = _make_step(cfg, tok, ctrl, tx, N_NEG_TRAIN)
+    fused = make_fused_step(dc, step, ctrl, loss="lce",
+                            n_neg_per_example=N_NEG_TRAIN,
+                            negative_parallel=negative_parallel)
+    state = init_train_state(params, tx, ctrl.init("cuda"),
+                             seed=PARALLEL_SEED)
+    torch.cuda.synchronize()
+    before = _launches()
+    with mesh if mesh is not None else contextlib.nullcontext():
+        state, metrics = fused(state, torch.arange(B_TRAIN, device="cuda"))
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in _launches().items()}
+    return metrics["loss"].item(), t5.flatten_params(state.opt_state.mu), used
+
+
+def _vs_one_process(got: tuple, ref: tuple) -> dict:
+    """Loss relative error and per-leaf ||mu - mu_ref|| / ||mu_ref|| (the
+    first moment is 0.1 x the unclipped gradient after step 1)."""
+    (loss, mu), (ref_loss, ref_mu) = got, ref
+    rel = {k: ((mu[k] - ref_mu[k]).norm() / ref_mu[k].norm()).item()
+           for k in ref_mu if ref_mu[k].norm() > 0}
+    worst = max(rel, key=rel.get)
+    return dict(loss=loss, loss_one_process=ref_loss,
+                loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+                grad_rel_l2_max=rel[worst], grad_rel_l2_worst_leaf=worst,
+                grad_rel_l2_median=statistics.median(rel.values()),
+                bitwise=loss == ref_loss and all(
+                    torch.equal(mu[k], ref_mu[k]) for k in ref_mu))
+
+
+def _parallel_env() -> tuple:
+    cfg = _train_cfg(True)
+    tok, dc, params, ctrl, _ = _step_env(cfg, 160, B_TRAIN, N_NEG_TRAIN)
+    return cfg, tok, dc, params, ctrl
+
+
+def _k6_case(seed: int = 7):
+    """Phase 7b's K6 call (16 queries, 16,384 unit docs, k 65, blocks of
+    4096, k' 32) as fp32 docs for DenseIndex.build and the queries."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, N, D, k, block_n, kpb = K6_ONLINE
+    return _unit_rows(g, N, D), _unit_rows(g, B, D)
+
+
+def _k6_topk(docs, q, mesh=None):
+    B, N, D, k, block_n, kpb = K6_ONLINE
+    index = DenseIndex.build(docs, method="pallas", mesh=mesh, quantize=True,
+                             device="cuda", block_n=block_n, k_per_block=kpb)
+    return index.topk(q, k)
+
+
+def _parallel_rank(work: str, rank: int, backend: str, worlds: list) -> None:
+    """One rank of phase 12 (b) / (d), in a process of its own (``python3
+    chip_smoke.py --parallel-rank ...``): for each world size in turn (4:
+    a dp2 x seq2 mesh; 2: dp2 and the 2-shard K6 index) it
+    joins a group of that many ranks and runs its case; rank 0 then runs
+    the one-process step and top-k and holds the ranks' results against
+    them. Writes ``<work>/rank<rank>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels.library()  # the parent built it: loaded, not rebuilt
+    env = _parallel_env()
+    out, kept = {"rank": rank, "backend": backend}, {}
+    for world in worlds:
+        if rank >= world:
+            break
+        maybe_initialize_distributed(
+            f"file://{os.path.join(work, f'rendezvous{world}')}", world,
+            rank, backend=backend, device="cuda",
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S // 2))
+        try:
+            shape = MeshConfig(data=2, seq=2) if world == 4 else MeshConfig(
+                data=2)
+            mesh = create_mesh(shape, "cuda")
+            case = "dp2_seq2_negative_parallel" if world == 4 else "dp2"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, mu, used = _rank_step(env, mesh, world == 4)
+            seconds = time.perf_counter() - t0
+            sums = torch.stack([v.double().sum() for v in mu.values()]
+                               + [torch.tensor(loss, dtype=torch.float64,
+                                               device="cuda")])
+            every = gather_batch(sums[None], mesh)
+            out[case] = dict(
+                world=world, launches=used, step_s=seconds,
+                same_state_on_every_rank=bool((every == every[0]).all()),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+            kept[case] = (loss, mu)
+            if world == 2:
+                docs, q = _k6_case()
+                torch.cuda.synchronize()
+                before = _launches()
+                kept["index"] = _k6_topk(docs, q, mesh)
+                torch.cuda.synchronize()
+                out["index"] = {"launches": {k: v - before[k] for k, v in
+                                             _launches().items()}}
+        finally:
+            torch.distributed.destroy_process_group()
+    if rank == 0:
+        loss, mu, _ = _rank_step(env)
+        for case in ("dp2_seq2_negative_parallel", "dp2"):
+            if case in kept:
+                out[case].update(_vs_one_process(kept[case], (loss, mu)))
+        if "index" in kept:
+            docs, q = _k6_case()
+            ref = _k6_topk(docs, q)
+            index = quantize_embeddings(docs)
+            out["index"].update(_topk_agreement(q, index, kept["index"], ref,
+                                                mips_tol(K6_ONLINE[2])))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_ranks(work: str, backend: str, worlds: list) -> list[dict]:
+    """Start ``max(worlds)`` rank processes of this script and wait for
+    them (killed if they outlive RANKS_TIMEOUT_S); their results."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = max(worlds)
+    cmd = lambda r: [sys.executable, os.path.abspath(__file__),
+                     "--parallel-rank", str(r), work, backend,
+                     ",".join(map(str, worlds))]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(cmd(r), cwd=here, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(n)]
+    try:
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        for r, p in enumerate(procs):
+            _, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"parallel rank {r} ({backend}) exit "
+                                     f"{p.returncode}:\n{err[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _check_ranks(smi: str, label: str, ranks: list[dict]) -> dict:
+    """(b) / (d): each case within phase 5's gates of one process, the same
+    state on every rank, K3 = K4 = 12 (GEMM 36) on every rank, the 2-shard
+    K6 top-k one process's up to near-tie swaps."""
+    per_step = _per_step(attention=12, attention_bwd=12, gemm=36)
+    fields = {"case": label, "nvidia_smi": smi}
+    ok = True
+    for case in ("dp2_seq2_negative_parallel", "dp2"):
+        if case not in ranks[0]:
+            continue
+        r0 = ranks[0][case]
+        held = [r[case] for r in ranks if case in r]
+        fields[case] = {
+            **{k: r0[k] for k in ("world", "loss", "loss_one_process",
+                                  "loss_rel_err", "grad_rel_l2_max",
+                                  "grad_rel_l2_worst_leaf",
+                                  "grad_rel_l2_median", "bitwise")},
+            "launches_per_rank": [h["launches"] for h in held],
+            "peak_mib_per_rank": [h["peak_mib"] for h in held],
+            "step_s_per_rank": [h["step_s"] for h in held]}
+        ok &= (r0["loss_rel_err"] <= STEP_LOSS_RTOL
+               and r0["grad_rel_l2_max"] <= STEP_GRAD_REL_L2
+               and r0["grad_rel_l2_median"] <= STEP_GRAD_REL_L2_MEDIAN
+               and all(h["same_state_on_every_rank"] for h in held)
+               and all(h["launches"] == per_step for h in held))
+    index = ranks[0]["index"]
+    fields["index_2_shards"] = {
+        **index, "launches_per_rank": [r["index"]["launches"]
+                                       for r in ranks if "index" in r]}
+    tol = mips_tol(K6_ONLINE[2])
+    ok &= (index["max_abs_err"] <= tol and index["swap_err"] <= tol
+           and all(r["index"]["launches"] == _per_step(mips_topk_int8=1)
+                   for r in ranks if "index" in r))
+    emit("parallel", **fields)
+    if not ok:
+        raise AssertionError(f"parallel {label}: {fields}")
+    launches = [r[case]["launches"] for r in ranks
+                for case in ("dp2_seq2_negative_parallel", "dp2", "index")
+                if case in r]
+    return {**fields, "launches": {k: sum(u[k] for u in launches)
+                                   for k in COUNTED}}
+
+
+def _overlap_env() -> tuple:
+    """Phase 7b's online setting at phase 5's preset: 16,384 synthetic docs,
+    an int8 index, pools of 64, encode batches of 128; t5-base weights
+    from seed 0; the online step of 16 pairs x (1 + 7)."""
+    cfg = _train_cfg(True)
+    tok = HashTokenizer(vocab_size=32128)
+    corpus = TextCorpus.synthetic(num_docs=K6_ONLINE[1], num_queries=256,
+                                  seed=42)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
+                                 max_d_tokens=160)
+    triples = TripletStore.synthetic(corpus, n_pairs=1024, n_neg=100,
+                                     seed=42)
+    dc = DeviceCorpus.build(store, triples, device="cuda")
+    params = t5.init_params(cfg,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    mining = OnlineMiningConfig(pool_size=K6_ONLINE[3] - 1, encode_batch=128,
+                                quantize=True)
+    return cfg, tok, dc, params, mining
+
+
+def _online_step(env: tuple, steps: int):
+    cfg, tok, dc, params, mining = env
+    ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=1,
+                         total_steps=steps, kind="lce",
+                         objective="weighted_ce", optimizer="adamw",
+                         clamp=False,
+                         ce_scale=(1 + N_NEG_TRAIN) * float(np.log(32128)))
+    tx = make_optimizer(1e-3, total_steps=steps, warmup_steps=1)
+    step = _make_step(cfg, tok, ctrl, tx, N_NEG_TRAIN)
+    fused = make_online_fused_step(dc, step, ctrl, cfg, mining, N_NEG_TRAIN)
+    return fused, init_train_state(params, tx, ctrl.init("cuda"), seed=3)
+
+
+def _index_sum(index: tuple) -> float:
+    vals, scales = index
+    return float(vals.to(torch.int64).sum().item()) + scales.sum().item()
+
+
+def _swap_at_boundary(env: tuple, refresher) -> dict:
+    """OnlineMiningLoop, serial and overlapped (a refresh every 2 steps,
+    chunks of 1, delay 1 chunk): the overlapped loop must use the first
+    index one step longer and then the serial loop's second index."""
+    cfg, tok, dc, params, mining = env
+    runs = {}
+    for label, overlap in (("serial", None), ("overlapped", refresher)):
+        fused, state = _online_step(env, OVERLAP_LOOP_STEPS)
+
+        def counted(carry, idx, corpus):
+            carry, m = fused(carry, idx, corpus)
+            return carry, {**m, "index_sum": torch.tensor(
+                _index_sum(carry[1]))}
+
+        loop = OnlineMiningLoop(
+            fused_step=counted, refresh_fn=make_refresh_fn(dc, cfg, mining),
+            num_pairs=dc.num_pairs, batch_size=B_TRAIN, chunk_size=1,
+            refresh_every=2, log_mode="all", corpus=dc, overlap=overlap,
+            overlap_delay_chunks=1)
+        writer = MetricWriter(None)
+        loop.run(state, OVERLAP_LOOP_STEPS, writer)
+        runs[label] = {r["step"]: r["index_sum"] for r in writer.history
+                       if "index_sum" in r}
+    s, o = runs["serial"], runs["overlapped"]
+    ok = (s[1] == s[2] == o[1] == o[2] == o[3] and s[3] != s[2]
+          and o[4] == s[3] == s[4])
+    return {"index_sum_serial": s, "index_sum_overlapped": o,
+            "swap_at_boundary": ok}
+
+
+def _trace_overlap(log_dir: str) -> dict:
+    """From the profiled window's trace: the stream that ran most of the
+    refresh kernel (K1, the fused block's core) is the side stream, the
+    one that ran K4 the main one; the time during which a side-stream K1
+    overlapped a main-stream hand kernel (K3's core, K4, K6)."""
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    by_stream = {}
+    for e in events:
+        by_stream.setdefault(e["args"]["stream"], []).append(e)
+    count = lambda s, key: sum(key in e["name"] for e in by_stream[s])
+    side = max(by_stream, key=lambda s: count(s, REFRESH_KERNEL))
+    main = max(by_stream, key=lambda s: count(s, "dq_kernel"))
+    spans = lambda s, keys: sorted(
+        (e["ts"], e["ts"] + e["dur"]) for e in by_stream[s]
+        if any(k in e["name"] for k in keys))
+    side_k1 = spans(side, (REFRESH_KERNEL,))
+    main_k = spans(main, MAIN_KERNELS)
+    overlap_us, j = 0.0, 0
+    for a0, a1 in side_k1:
+        while j < len(main_k) and main_k[j][1] <= a0:
+            j += 1
+        for b0, b1 in main_k[j:]:
+            if b0 >= a1:
+                break
+            overlap_us += min(a1, b1) - max(a0, b0)
+    busy = lambda s: sum(e["dur"] for e in by_stream[s]) / 1e3
+    return {"side_stream": side, "main_stream": main,
+            "own_stream": side != main,
+            "side_k1_kernels": len(side_k1), "main_hand_kernels": len(main_k),
+            "side_k1_ms": sum(b - a for a, b in side_k1) / 1e3,
+            "side_busy_ms": busy(side), "main_busy_ms": busy(main),
+            "k1_overlapping_main_ms": overlap_us / 1e3}
+
+
+def _overlap_phase(smi: str, tmp: str) -> dict:
+    """(c): the refresh on a side stream of the training card."""
+    env = _overlap_env()
+    cfg, tok, dc, params, mining = env
+    layers = cfg.num_layers
+    batches = -(-K6_ONLINE[1] // mining.encode_batch)
+    refresh_once = {"attention": layers * batches,
+                    "gemm": 2 * layers * batches}
+    refresh = make_refresh_fn(dc, cfg, mining)
+    refresher = OverlappedRefresher(dc, cfg, mining)
+    try:
+        # the slices: bit for bit the serial refresh with the same params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = refresh(params)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        _zero_launches()
+        t0 = time.perf_counter()
+        refresher.start(params)
+        got = refresher.collect()
+        torch.cuda.synchronize()
+        side_s = time.perf_counter() - t0
+        refresh_launches = _launches()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, serial))
+        del got
+
+        # a window of steps beside one refresh, against the steps then the
+        # refresh; steps counted while the refresh thread still launched
+        per_step = _per_step(attention=layers, attention_bwd=layers,
+                             gemm=3 * layers, mips_topk_int8=1)
+        idx = [torch.from_numpy(i.astype(np.int64)).cuda() for i, _ in zip(
+            pair_index_stream(dc.num_pairs, B_TRAIN, 0),
+            range(OVERLAP_WINDOW_STEPS))]
+        fused, state = _online_step(env, OVERLAP_WINDOW_STEPS + 2)
+        carry = (state, serial)
+        carry, _ = fused(carry, idx[0], dc)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in idx:
+            carry, _ = fused(carry, i, dc)
+        refresh(carry[0].params)
+        torch.cuda.synchronize()
+        window_serial_s = time.perf_counter() - t0
+        _zero_launches()
+        t0 = time.perf_counter()
+        refresher.start(carry[0].params)
+        start_s = time.perf_counter() - t0
+        during = 0
+        for i in idx:
+            carry, m = fused(carry, i, dc)
+            during += refresher.launching
+        refresher.collect()
+        torch.cuda.synchronize()
+        window_overlap_s = time.perf_counter() - t0
+        window_launches = _launches()
+        want = {k: n * OVERLAP_WINDOW_STEPS + refresh_once.get(k, 0)
+                for k, n in per_step.items()}
+
+        # one profiled window: does K1 on the side stream run beside the
+        # main stream's kernels?
+        log_dir = os.path.join(tmp, "overlap_trace")
+        with profiling.trace(log_dir):
+            refresher.start(carry[0].params)
+            for i in idx[:OVERLAP_TRACED_STEPS]:
+                carry, _ = fused(carry, i, dc)
+            refresher.collect()
+            torch.cuda.synchronize()
+        traced = _trace_overlap(log_dir)
+        swap = _swap_at_boundary(env, refresher)
+    finally:
+        refresher.close()
+    fields = dict(
+        case="overlapped_refresh_one_card", docs=K6_ONLINE[1],
+        refresh_serial_s=serial_s, refresh_side_stream_s=side_s,
+        slices_bitwise=bitwise, refresh_launches=refresh_launches,
+        expected_refresh_launches=_per_step(**refresh_once),
+        start_s=start_s, start_fraction=start_s / serial_s,
+        start_fraction_max=START_FRACTION_MAX,
+        window_steps=OVERLAP_WINDOW_STEPS,
+        window_serial_s=window_serial_s, window_overlapped_s=window_overlap_s,
+        steps_while_refresh_launching=during,
+        window_launches=window_launches, expected_window_launches=want,
+        trace=traced, **swap, nvidia_smi=smi)
+    emit("parallel", **fields)
+    if not (bitwise and swap["swap_at_boundary"] and traced["own_stream"]
+            and start_s / serial_s <= START_FRACTION_MAX and during >= 1
+            and refresh_launches == _per_step(**refresh_once)
+            and window_launches == want):
+        raise AssertionError(f"parallel overlap: {fields}")
+    return {**fields, "launches": {k: refresh_launches[k] + window_launches[k]
+                                   for k in COUNTED}}
+
+
+def _world1_phase(smi: str, tmp: str) -> dict:
+    """(a): NCCL at world 1 in this process: the step under a data=1 mesh
+    and a one-shard K6 index, each bit for bit without the mesh."""
+    maybe_initialize_distributed(f"file://{os.path.join(tmp, 'rdv1')}", 1,
+                                 0, device="cuda")
+    try:
+        mesh = create_mesh(MeshConfig(data=1), "cuda")
+        env = _parallel_env()
+        plain_loss, plain_mu, _ = _rank_step(env)
+        _zero_launches()
+        loss, mu, used = _rank_step(env, mesh, negative_parallel=True)
+        step = _vs_one_process((loss, mu), (plain_loss, plain_mu))
+        docs, q = _k6_case()
+        ref = _k6_topk(docs, q)
+        torch.cuda.synchronize()
+        before = _launches()
+        got = _k6_topk(docs, q, mesh)
+        torch.cuda.synchronize()
+        index_used = {k: v - before[k] for k, v in _launches().items()}
+        index_bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    want = _per_step(attention=12, attention_bwd=12, gemm=36)
+    fields = dict(case="nccl_world1", backend=backend, **step,
+                  launches=used, expected_launches=want,
+                  index_bitwise=index_bitwise, index_launches=index_used,
+                  nvidia_smi=smi)
+    emit("parallel", **fields)
+    if not (step["bitwise"] and used == want and index_bitwise
+            and index_used == _per_step(mips_topk_int8=1)):
+        raise AssertionError(f"parallel world 1: {fields}")
+    return {**fields, "launches": {k: used[k] + index_used[k]
+                                   for k in COUNTED}}
+
+
+def phase_parallel(smi: str) -> dict:
+    emit("parallel", config="t5-base", dtype="bfloat16",
+         rows_per_step=ROWS_TRAIN, prompt_len=188)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        world1 = _world1_phase(smi, tmp)
+        gloo_dir = os.path.join(tmp, "gloo")
+        os.makedirs(gloo_dir)
+        ranks = _check_ranks(smi, "gloo_one_card",
+                             _spawn_ranks(gloo_dir, "gloo", [4, 2]))
+        overlap = _overlap_phase(smi, tmp)
+        if torch.cuda.device_count() >= 2:
+            nccl_dir = os.path.join(tmp, "nccl")
+            os.makedirs(nccl_dir)
+            nccl2 = _check_ranks(smi, "nccl_world2",
+                                 _spawn_ranks(nccl_dir, "nccl", [2]))
+        else:
+            nccl2 = "not run: 1 card"
+            emit("parallel", nccl_world2=nccl2)
+    seconds = time.perf_counter() - t_phase
+    emit("parallel", seconds=seconds)
+    return {"world1": world1, "ranks": ranks, "overlap": overlap,
+            "nccl_world2": nccl2, "seconds": seconds,
+            "launches": {"parallel_world1": world1["launches"],
+                         "parallel_overlap": overlap["launches"]}}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -3383,6 +3908,12 @@ def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        # a rank of phase 12, started by phase_parallel
+        rank, work, backend, worlds = sys.argv[2:6]
+        _parallel_rank(work, int(rank), backend,
+                       [int(w) for w in worlds.split(",")])
+        return 0
     t_start = time.perf_counter()
     device, smi = phase_device()
     phase_build()
@@ -3398,6 +3929,7 @@ def main() -> int:
         cu = phase_curricula(smi)
         sc = phase_scored(smi, run_dir)
     di = phase_distill(smi)
+    pa = phase_parallel(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -3410,7 +3942,10 @@ def main() -> int:
              "evaluate": ev["bf16"]["launches"],
              "evaluate_int8": ev["int8"]["launches"],
              "curricula": cu["launches"], **sc["launches"],
-             **di["launches"]}
+             **di["launches"], **pa["launches"],
+             "parallel_gloo_ranks": pa["ranks"]["launches"]}
+    if isinstance(pa["nccl_world2"], dict):
+        paths["parallel_nccl_world2"] = pa["nccl_world2"]["launches"]
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -3564,6 +4099,26 @@ def main() -> int:
             **{key: di["cost"][key] for key in (
                 "counted_over_model", "mfu_flash_v3_step",
                 "mfu_cli_margin_mse")}},
+        "parallel": {
+            "world1_nccl": {key: pa["world1"][key] for key in (
+                "bitwise", "index_bitwise", "launches")},
+            **{case: {key: pa["ranks"][case][key] for key in (
+                "loss_rel_err", "grad_rel_l2_max", "grad_rel_l2_median",
+                "peak_mib_per_rank", "step_s_per_rank")}
+               for case in ("dp2_seq2_negative_parallel", "dp2")},
+            "index_2_shards": {key: pa["ranks"]["index_2_shards"][key]
+                               for key in ("max_abs_err", "near_tie_swaps")},
+            "overlap": {key: pa["overlap"][key] for key in (
+                "slices_bitwise", "swap_at_boundary", "refresh_serial_s",
+                "refresh_side_stream_s", "start_fraction",
+                "window_serial_s", "window_overlapped_s",
+                "steps_while_refresh_launching")},
+            "overlap_trace": pa["overlap"]["trace"],
+            "nccl_world2": (pa["nccl_world2"]
+                            if isinstance(pa["nccl_world2"], str) else
+                            {case: pa["nccl_world2"][case]["loss_rel_err"]
+                             for case in ("dp2",)}),
+            "seconds": pa["seconds"]},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

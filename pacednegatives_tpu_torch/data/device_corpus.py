@@ -173,20 +173,27 @@ class DeviceCorpus:
         }
 
     def lce_batch(self, generator: torch.Generator, pair_idx: torch.Tensor,
-                  difficulty, n: int, pools: torch.Tensor | None = None):
+                  difficulty, n: int, pools: torch.Tensor | None = None,
+                  rows: torch.Tensor | None = None):
         """LCE batch: n binomially-sampled negatives per pair, drawn with
         ``generator`` (reference LCEDataset.__getitem__ + collate). Negative
         prompts are (B*n, L) in example-major order. ``pools``: (B, P) doc
         rows easiest first for these pairs (online mining); default the
-        stored pools."""
-        B = pair_idx.shape[0]
+        stored pools. ``rows``: the positions in ``pair_idx`` to assemble (a
+        rank's block of a data-parallel batch); the draws are made for
+        every pair all the same, so the generator moves as without it."""
         q = self.query_rows[pair_idx]
         pos_d = self.pos_rows[pair_idx]
         pools = self.pools[pair_idx] if pools is None else pools
         P = pools.shape[1]
         means = torch.as_tensor(difficulty, dtype=torch.float32,
-                                device=self.device).expand(B)
+                                device=self.device).expand(pair_idx.shape[0])
         slots = sample_pool_indices_batch(generator, P, means, n)
+        if rows is not None:
+            rows = rows.to(self.device)
+            q, pos_d, pools, slots = (q[rows], pos_d[rows], pools[rows],
+                                      slots[rows])
+        B = q.shape[0]
         neg_d = torch.gather(pools, 1, slots)  # (B, n)
         pos_ids, pos_mask = self.assemble(q, pos_d)
         neg_ids, neg_mask = self.assemble(q.repeat_interleave(n),

@@ -1,4 +1,5 @@
-"""Retrieval indexes (the port of index/): the dense index on one device;
+"""Retrieval indexes (the port of index/): the dense index (on one device,
+or sharded over a mesh's ranks);
 ``index/sparse.py`` (the quantized impact index of SPLADE pools) is a host
 copy of the JAX package's numpy module."""
 

@@ -64,6 +64,7 @@ from pacednegatives_tpu_torch.ops.flash_v3 import (
     flash_v3_eligible,
     fused_self_attention,
 )
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh
 
 NEG_INF = -1e9  # additive mask value, applied in fp32 (t5.py:33)
 
@@ -477,6 +478,18 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     # an eligible shape and a shared bias of batch 1. Decoder self-attention (Lt = 1), cross-
     # attention and packed buckets shorter than 64 stay on the dense path.
     if cfg.flash_v3 and x is kv and isinstance(bias, tuple):
+        # under a mesh the rows here are this rank's block, which
+        # parallel/mesh.local_rows split off (and refused to split
+        # unevenly, as the JAX shard_map wrapper refuses, t5.py:490-496);
+        # the fused block keeps the full attention weights on each rank, so
+        # it refuses tensor parallelism (t5.py:437-443)
+        mesh = current_mesh()
+        if mesh is not None and mesh.model > 1:
+            raise ValueError(
+                "flash_v3 does not compose with tensor (model-axis) "
+                "parallelism: the fused block kernel keeps the full "
+                "attention weights per device; set model=1 or disable "
+                "flash_v3.")
         shared, per_batch = bias
         shared_ok = shared is None or shared.shape[0] == 1
         if flash_v3_eligible(H, Lq, Lk, dk, d_in) and shared_ok:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pacednegatives_tpu_torch.models.t5 import flatten_params, unflatten_params
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh
 from pacednegatives_tpu_torch.train.state import TrainState
 
 
@@ -125,6 +126,27 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
 
 
+def checkpoint(mesh, path: str, state: TrainState) -> None:
+    """``save_checkpoint`` by rank 0 of a mesh (every rank holds the same
+    state), between two barriers: no rank goes on, or reads it, before it
+    is written."""
+    if mesh is None:
+        save_checkpoint(path, state)
+        return
+    mesh.barrier()
+    if mesh.rank == 0:
+        save_checkpoint(path, state)
+    mesh.barrier()
+
+
+def writer_of(mesh, writer: "MetricWriter | None") -> "MetricWriter":
+    """The loop's metric writer: ``writer`` (or a null one) on rank 0 of a
+    mesh and without a mesh, a null one on the other ranks."""
+    if writer is None or (mesh is not None and mesh.rank != 0):
+        return MetricWriter(None)
+    return writer
+
+
 def latest_checkpoint(out_dir: str) -> str | None:
     """Newest step_N checkpoint under ``out_dir`` (else 'final' if present)."""
     if not os.path.isdir(out_dir):
@@ -228,7 +250,11 @@ class TrainLoop:
 
     def run(self, state: TrainState, total_steps: int,
             writer: MetricWriter | None = None) -> TrainState:
-        writer = writer or MetricWriter(None)
+        """Train to ``total_steps``. Under a mesh, run it inside ``with
+        mesh:`` on every rank: the same pair stream feeds every rank, and
+        rank 0 writes the metrics and checkpoints."""
+        mesh = current_mesh()
+        writer = writer_of(mesh, writer)
         stream = pair_index_stream(
             self.num_pairs, self.batch_size, self.seed, self.shuffle,
             exclude=self.exclude_pairs,
@@ -266,9 +292,8 @@ class TrainLoop:
                 and done - last_ckpt >= self.checkpoint_every_steps
             ):
                 last_ckpt = done
-                save_checkpoint(
-                    os.path.join(self.checkpoint_dir, f"step_{done}"), state
-                )
+                checkpoint(mesh, os.path.join(self.checkpoint_dir,
+                                              f"step_{done}"), state)
 
             if (
                 self.eval_fn is not None

@@ -12,11 +12,19 @@ north star, runner.py:114-115). Each step:
   4. assembles the prompts from the device corpus and runs the train step.
 
 Every ``refresh_every`` steps the index is re-encoded with the current
-weights. On one card the loop refreshes serially, as the JAX package's
-one-device loop does (online.py:19-27): the next step needs the new index.
-The overlapped refresh of train/overlap.py needs disjoint devices (an
-encode submesh beside a train submesh) and is not ported yet
-(``overlap=`` raises; ROADMAP.md slice R, with parallel/*).
+weights. Serially, as the JAX package's one-device loop does
+(online.py:19-27), the next step waits for the new index; with
+``overlap=`` (train/overlap.py) the refresh runs beside training, on a
+second card or on a stream of its own on this one, and the new index lands
+``overlap_delay_chunks`` chunk boundaries later.
+
+Under a mesh (parallel/mesh.py) the index is sharded over the ranks: each
+rank encodes only its shard's docs (``make_refresh_fn``), embeds its block
+of the batch's queries, and the query embeddings are gathered so that
+every rank mines the global batch from its shard and merges the shards'
+candidates (``parallel.collectives.merge_topk``); each rank then keeps its
+rows of the batch, with the global draws. Metrics and checkpoints are
+written by rank 0.
 """
 
 from __future__ import annotations
@@ -38,12 +46,22 @@ from pacednegatives_tpu_torch.ops.mips import (
     mips_topk_quantized_streaming,
     quantize_embeddings,
 )
+from pacednegatives_tpu_torch.parallel.collectives import (
+    gather_batch,
+    merge_topk,
+)
+from pacednegatives_tpu_torch.parallel.mesh import (
+    current_mesh,
+    local_rows,
+    shard_range,
+)
 from pacednegatives_tpu_torch.train.loop import (
     MetricWriter,
+    checkpoint,
     done_per_sec,
     pair_index_stream,
-    save_checkpoint,
     write_chunk_metrics,
+    writer_of,
 )
 from pacednegatives_tpu_torch.train.state import TrainState
 
@@ -84,25 +102,33 @@ def mips_block_n(mining: OnlineMiningConfig, rows: int) -> int | None:
     return bn if rows % bn == 0 else None
 
 
-def mine_top(q_emb: torch.Tensor, embeddings, k: int,
-             mining: OnlineMiningConfig) -> torch.Tensor:
-    """(B, D) query embeddings -> (B, k) doc rows, hardest first, with the
-    dispatch of online.py:119-145: the int8 index goes through K6 on the
-    card when its row count is block-aligned, else (and on the CPU, as JAX
-    does off the TPU) through the exact streaming path."""
-    q = q_emb.float()
+def _top(q: torch.Tensor, embeddings, k: int, mining: OnlineMiningConfig):
+    """(values, doc rows) of the top k of one index (or shard)."""
     if mining.quantize:
         vals, scales = embeddings
         bn = mips_block_n(mining, vals.shape[0])
         if bn is not None and vals.device.type == "cuda":
-            _, idx = mips_topk_pallas_quantized(
+            return mips_topk_pallas_quantized(
                 q, vals, scales, k, block_n=bn,
                 k_per_block=min(mining.k_per_block, k))
-        else:
-            _, idx = mips_topk_quantized_streaming(q, vals, scales, k)
-        return idx
-    _, idx = mips_topk_exact(q, embeddings, k)
-    return idx
+        return mips_topk_quantized_streaming(q, vals, scales, k)
+    return mips_topk_exact(q, embeddings, k)
+
+
+def mine_top(q_emb: torch.Tensor, embeddings, k: int,
+             mining: OnlineMiningConfig, mesh=None) -> torch.Tensor:
+    """(B, D) query embeddings -> (B, k) doc rows, hardest first, with the
+    dispatch of online.py:119-145: the int8 index goes through K6 on the
+    card when its row count is block-aligned, else (and on the CPU, as JAX
+    does off the TPU) through the exact streaming path. With a ``mesh``,
+    ``embeddings`` is this rank's shard: its top min(k, shard rows), then
+    the merge of every shard's (the same rows on every rank)."""
+    q = q_emb.float()
+    if mesh is None:
+        return _top(q, embeddings, k, mining)[1]
+    shard = (embeddings[0] if mining.quantize else embeddings).shape[0]
+    v, i = _top(q, embeddings, min(k, shard), mining)
+    return merge_topk(v, i + mesh.row_rank * shard, k, mesh)[1]
 
 
 def make_online_fused_step(corpus: DeviceCorpus, step_fn: Callable,
@@ -119,19 +145,24 @@ def make_online_fused_step(corpus: DeviceCorpus, step_fn: Callable,
 
     def fused(carry, pair_idx: torch.Tensor, corpus=None):
         corpus = default_corpus if corpus is None else corpus
+        mesh = current_mesh()
         state, embeddings = carry
         difficulty = controller.difficulty(state.curriculum)
         B = pair_idx.shape[0]
         q_rows = corpus.query_rows[pair_idx]
         pos_rows = corpus.pos_rows[pair_idx]
 
-        # 1-2. query embeddings under the current weights, mined pools
-        q_tok = corpus.q_tokens[q_rows].long()
-        q_mask = (corpus.q_mask[q_rows] if corpus.q_mask is not None
+        # 1-2. query embeddings under the current weights (each rank its
+        # block, gathered), mined pools
+        mine_q = local_rows(q_rows, mesh)
+        q_tok = corpus.q_tokens[mine_q].long()
+        q_mask = (corpus.q_mask[mine_q] if corpus.q_mask is not None
                   else (q_tok != corpus.pad_id).to(torch.int32))
         q_emb = embed(state.params, model_cfg, q_tok, q_mask)
+        if mesh is not None:
+            q_emb = gather_batch(q_emb, mesh)
         k = P + (1 if mining.exclude_positive else 0)
-        idx = mine_top(q_emb, embeddings, k, mining)
+        idx = mine_top(q_emb, embeddings, k, mining, mesh)
         if mining.exclude_positive:
             # drop the positive if retrieved, else the extra last slot: a
             # stable sort that gives the positive the worst key
@@ -143,8 +174,10 @@ def make_online_fused_step(corpus: DeviceCorpus, step_fn: Callable,
 
         # 3-4. paced binomial sampling over the mined pools' ranks, the
         # static path's prompt assembly, the step
+        rows = (None if mesh is None else
+                local_rows(torch.arange(B), mesh))
         batch = corpus.lce_batch(state.generator, pair_idx, difficulty, n,
-                                 pools=pools)
+                                 pools=pools, rows=rows)
         state, metrics = step_fn(state, batch)
         return (state, embeddings), metrics
 
@@ -160,17 +193,20 @@ def make_refresh_fn(corpus: DeviceCorpus, model_cfg: t5.T5Config,
     quantised on its own (per-row quantisation makes slicing exact), and
     each slice is copied in place into one buffer allocated at the first
     slice: no concatenation, so no second full index ever exists, and the
-    fp32 transient is one slice."""
-    rows = corpus.d_tokens.shape[0]
-    per = max(min(rows, mining.refresh_rows_per_call), 1)
+    fp32 transient is one slice. Under a mesh each rank encodes, and
+    returns, its contiguous shard of the docs."""
 
     def refresh(params):
+        lo, hi = shard_range(corpus.d_tokens.shape[0], current_mesh())
+        rows = hi - lo
+        per = max(min(rows, mining.refresh_rows_per_call), 1)
         bufs = None
         for i in range(0, rows, per):
             size = min(i + per, rows) - i
+            s0, s1 = lo + i, lo + i + size
             emb = encode_corpus(
-                params, model_cfg, corpus.d_tokens[i:i + size],
-                None if corpus.d_mask is None else corpus.d_mask[i:i + size],
+                params, model_cfg, corpus.d_tokens[s0:s1],
+                None if corpus.d_mask is None else corpus.d_mask[s0:s1],
                 batch_size=mining.encode_batch, pad_id=corpus.pad_id)
             leaves = quantize_embeddings(emb) if mining.quantize else (emb,)
             del emb
@@ -194,8 +230,9 @@ class OnlineMiningLoop:
     """Training with periodic index refresh, a Python loop over steps.
     ``chunk_size`` keeps its logging meaning (metrics read once a chunk);
     the refresh cadence and the data stream follow the ABSOLUTE step, so
-    they survive a restart. Each refresh logs ``refresh_seconds`` (device
-    time included: the next step waits for it anyway)."""
+    they survive a restart. Each serial refresh logs ``refresh_seconds``
+    (device time included: the next step waits for it anyway). Under a
+    mesh, run it inside ``with mesh:`` on every rank (module docstring)."""
 
     fused_step: Callable  # from make_online_fused_step
     refresh_fn: Callable  # from make_refresh_fn
@@ -219,18 +256,29 @@ class OnlineMiningLoop:
     # when set, passed to fused_step as its third argument; the pair
     # indices go to its device
     corpus: DeviceCorpus | None = None
-    overlap: object | None = None  # not ported: must stay None
+    # Overlapped refresh (train/overlap.py): the refresh runs beside
+    # training, still with the trigger step's params, and the swap lands
+    # ``overlap_delay_chunks`` chunk boundaries later (bounded, explicit
+    # index staleness instead of the serial refresh's stall).
+    overlap: object | None = None  # OverlappedRefresher
+    overlap_delay_chunks: int = 1
 
     def __post_init__(self):
-        if self.overlap is not None:
-            raise NotImplementedError(
-                "OnlineMiningLoop(overlap=...) (train/overlap.py: refresh on "
-                "an encode submesh beside the train submesh) is not ported "
-                "yet (ROADMAP.md slice R, with parallel/*); on one card the "
-                "loop refreshes serially")
+        if self.checkpoint_index and self.overlap is not None:
+            # a snapshot cannot hold a refresh in flight, so a restart
+            # would mine from another index than the uninterrupted run
+            raise ValueError(
+                "checkpoint_index=True is a single-mesh guarantee and is "
+                "not supported together with an overlapped refresh "
+                "(overlap=...); checkpoint at refresh-quiescent boundaries "
+                "or disable one of the two"
+            )
 
     def _index_snapshot_path(self, step: int) -> str:
-        return os.path.join(self.checkpoint_dir, f"step_{step}", "index.pt")
+        mesh = current_mesh()
+        name = ("index.pt" if mesh is None or mesh.row_size == 1
+                else f"index.shard{mesh.row_rank}of{mesh.row_size}.pt")
+        return os.path.join(self.checkpoint_dir, f"step_{step}", name)
 
     def _save_index(self, embeddings, step: int) -> None:
         leaves = embeddings if isinstance(embeddings, tuple) else (embeddings,)
@@ -260,7 +308,8 @@ class OnlineMiningLoop:
 
     def run(self, state: TrainState, total_steps: int,
             writer: MetricWriter | None = None) -> TrainState:
-        writer = writer or MetricWriter(None)
+        mesh = current_mesh()
+        writer = writer_of(mesh, writer)
         stream = pair_index_stream(self.num_pairs, self.batch_size, self.seed,
                                    exclude=self.exclude_pairs)
         device = (self.corpus.device if self.corpus is not None else
@@ -279,6 +328,7 @@ class OnlineMiningLoop:
         done = start_step
         last_eval = last_ckpt = done
         next_refresh = ((done // self.refresh_every) + 1) * self.refresh_every
+        swap_at = None  # overlapped refresh: the step at which it lands
         index_ckpt_step = None  # pending post-refresh index snapshot
         t0 = time.time()
         while done < total_steps:
@@ -301,9 +351,8 @@ class OnlineMiningLoop:
             if (self.checkpoint_dir and self.checkpoint_every_steps
                     and done - last_ckpt >= self.checkpoint_every_steps):
                 last_ckpt = done
-                save_checkpoint(
-                    os.path.join(self.checkpoint_dir, f"step_{done}"),
-                    carry[0])
+                checkpoint(mesh, os.path.join(self.checkpoint_dir,
+                                              f"step_{done}"), carry[0])
                 # written at the END of this iteration, after a refresh
                 # due at this same boundary: a resumed run schedules its
                 # next refresh past this step, so it needs the new index
@@ -315,14 +364,28 @@ class OnlineMiningLoop:
                 writer.write({"step": done,
                               **{f"eval/{n}": v for n, v in ev.items()}})
                 writer.flush()
+            if self.overlap is not None and swap_at is not None \
+                    and done >= swap_at:
+                # the overlapped refresh lands at this chunk boundary
+                carry = (carry[0], self.overlap.collect(old=carry[1]))
+                swap_at = None
             if done >= next_refresh and done < total_steps:
                 state = carry[0]
-                carry = (state, self._refresh(state.params, done, device,
-                                              writer))
+                if self.overlap is not None:
+                    if self.overlap.in_flight:  # delay > cadence: land first
+                        carry = (state, self.overlap.collect(old=carry[1]))
+                    self.overlap.start(state.params)
+                    swap_at = done + self.overlap_delay_chunks * self.chunk_size
+                else:
+                    carry = (state, self._refresh(state.params, done, device,
+                                                  writer))
                 next_refresh += self.refresh_every
             if index_ckpt_step is not None:
                 self._save_index(carry[1], index_ckpt_step)
                 index_ckpt_step = None
+        if self.overlap is not None and self.overlap.in_flight:
+            # an in-flight refresh nobody will read: dropped, not assembled
+            self.overlap.discard()
         writer.write({"step": done, "time": time.time() - t0})
         writer.flush()
         return carry[0]

@@ -25,9 +25,16 @@ Where the JAX step runs the chunks under ``lax.map`` and picks each
 chunk's bucket width with ``lax.switch``, the port runs a Python loop and
 picks the widths on the host, all chunks' widths read in one copy a step
 (``score_candidates``).
-``negative_parallel`` constrains rows to a device mesh in the JAX package;
-on one device that is a no-op, and the port accepts the flag and does
-nothing with it.
+Under a mesh (parallel/mesh.py) ``pair_idx`` is the global batch on every
+rank; each rank assembles every candidate and selects for every pair, so
+that the ranks pick the same negatives with the same generator, and hands
+its block of the batch's rows to the step. The scoring splits too (the
+JAX package's row constraints under ``negative_parallel``,
+scored_pool.py:209, 218, 252): each chunk's rows over the row group, after
+the length sort, each rank scoring its block and one all-gather of the
+scores a step. The port does this whenever a mesh is present, so
+``negative_parallel`` is accepted for the JAX signature and changes
+nothing (as in ``make_fused_step``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ import torch
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.monot5 import score_batch
 from pacednegatives_tpu_torch.ops.sampling import sample_pool_indices_batch
+from pacednegatives_tpu_torch.parallel.collectives import gather_batch
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh, local_rows
 from pacednegatives_tpu_torch.train.state import TrainState
 
 
@@ -56,14 +65,16 @@ def balanced_slots(n_pool: int, c: int) -> np.ndarray:
 
 def score_candidates(score_fn, ids: torch.Tensor, mask: torch.Tensor, *,
                      chunk_rows: int, buckets: tuple = (),
-                     packed: bool = False) -> torch.Tensor:
+                     packed: bool = False, mesh=None) -> torch.Tensor:
     """(rows, L) prompts -> (rows,) scores under ``torch.no_grad()``,
     ``score_fn(ids, mask)`` on ``chunk_rows`` rows at a time (rounded down
     to a divisor of rows: every chunk has one shape). With ``buckets``
     (ascending widths; L is appended) the rows are sorted by true length
     and each chunk runs at the smallest width covering its longest row,
     every chunk's width read in one copy to the host; the scores come back
-    in row order. Buckets need front-compacted prompts (``packed``)."""
+    in row order. Buckets need front-compacted prompts (``packed``). With
+    a ``mesh`` each chunk's rows split over its row group (the chunk must
+    divide), and every rank gets every score."""
     rows, L = ids.shape
     chunk = min(int(chunk_rows), rows)
     while rows % chunk:
@@ -89,11 +100,17 @@ def score_candidates(score_fn, ids: torch.Tensor, mask: torch.Tensor, *,
                             for w in longest.tolist()]
         else:
             chunk_widths = [L] * (rows // chunk)
+        split = ((lambda t: t) if mesh is None
+                 else (lambda t: local_rows(t, mesh)))
         raw = torch.cat([
-            score_fn(ids[c * chunk:(c + 1) * chunk, :W],
-                     mask[c * chunk:(c + 1) * chunk, :W])
+            score_fn(split(ids[c * chunk:(c + 1) * chunk, :W]),
+                     split(mask[c * chunk:(c + 1) * chunk, :W]))
             for c, W in enumerate(chunk_widths)
         ])
+        if mesh is not None:
+            # (row_size, chunks, block) -> each chunk's blocks in row order
+            raw = gather_batch(raw.view(1, len(chunk_widths), -1),
+                               mesh).transpose(0, 1).reshape(-1)
         if use_buckets:
             raw = torch.empty_like(raw).index_copy_(0, perm, raw)
     return raw
@@ -113,7 +130,8 @@ def make_scored_pool_step(
     # forward (models/quant.py) with an fp32 residual stream; "int8_bf16":
     # the same with a bf16 stream. The weights are quantized once a step.
     score_dtype: str = "compute",
-    # a mesh constraint in the JAX package; nothing to do on one device
+    # JAX's row constraint; the port splits the scoring and the step's
+    # rows over data x seq whenever a mesh is present (module docstring)
     negative_parallel: bool = False,
     # upper bound on rows per scoring forward (rounded down to a divisor
     # of B*C, as the JAX step rounds it)
@@ -148,6 +166,7 @@ def make_scored_pool_step(
 
     def fused(state: TrainState, pair_idx: torch.Tensor, corpus=None):
         corpus = default_corpus if corpus is None else corpus
+        mesh = current_mesh()
         B = pair_idx.shape[0]
         dev = corpus.device
         difficulty = controller.difficulty(state.curriculum)
@@ -178,7 +197,7 @@ def make_scored_pool_step(
                     nrel_id=nrel_id)
         raw = score_candidates(score_fn, ids, mask,
                                chunk_rows=score_chunk_rows, buckets=buckets,
-                               packed=corpus.packed)
+                               packed=corpus.packed, mesh=mesh)
         scores = raw.reshape(B, C)
 
         # easiest (lowest relevance) -> hardest (highest), per pair
@@ -204,6 +223,8 @@ def make_scored_pool_step(
             # the current model)
             "neg_rank": (sel.float() / max(C - 1, 1)).reshape(-1),
         }
+        if mesh is not None:
+            batch = {k: local_rows(v, mesh) for k, v in batch.items()}
         new_state, metrics = step_fn(state, batch)
         metrics = {
             **metrics,

@@ -35,6 +35,12 @@ from pacednegatives_tpu_torch.ops.losses import (
     token_ce_per_token,
 )
 from pacednegatives_tpu_torch.optim import apply_updates
+from pacednegatives_tpu_torch.parallel.collectives import (
+    gather_batch,
+    gather_batch_with_grad,
+    mean_over_ranks,
+)
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh, local_rows
 from pacednegatives_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -81,7 +87,15 @@ def make_train_step(
     ``grad_accum_dtype`` ("fp32", or "bf16", which rounds once per add):
     each is divided by k in its own dtype, cast to the carry's dtype and
     added, as the JAX scan does; the sum is upcast to fp32 for the
-    optimizer. One optimizer and one curriculum update per step."""
+    optimizer. One optimizer and one curriculum update per step.
+
+    Under a mesh (``with mesh:``, parallel/mesh.py) the batch is this
+    rank's rows (``make_fused_step`` hands them over) and the step stays
+    one global-batch step, as GSPMD computes it: every rank computes the
+    loss on every rank's per-token CE rows (gathered with a gradient), the
+    fp32 gradients are averaged over the row group before the optimizer,
+    and the curriculum signals and metrics are the global batch's on every
+    rank, in row order."""
     if loss not in ("pair", "lce"):
         raise ValueError(loss)
     if label_grouping not in ("per_example", "flat_tokens"):
@@ -110,9 +124,25 @@ def make_train_step(
             p = p.to(model_cfg.dtype)
         return p.detach().requires_grad_(True)
 
-    def loss_fn(params, biases, seed, pos_ids, pos_mask, pos_labels, neg_ids,
-                neg_mask, neg_labels):
-        # one forward over [positives; negatives] (step.py:200-232)
+    def objective(ce_tok, labels, b):
+        """(main loss, (sig_p, sig_n, sig_ce)) of per-token CE rows
+        [positives; negatives] with ``b`` positives (step.py:200-232)."""
+        count = (labels != -100).sum(dim=-1).clamp_min(1)
+        ce_all = ce_tok.sum(dim=-1) / count
+        pce, nce = ce_all[:b], ce_all[b:]
+        if loss == "pair":
+            sig_p, sig_n = ce_tok[:b].reshape(-1), ce_tok[b:].reshape(-1)
+            return pce.mean() + nce.mean(), (sig_p, sig_n,
+                                              (sig_p + sig_n) / 2.0)
+        if label_grouping == "flat_tokens":
+            sig_ce = lce_ce_flat_tokens(ce_tok[:b], ce_tok[b:], n, use_mean)
+        else:
+            sig_ce = lce_ce(pce, nce, n, use_mean)
+        return sig_ce.mean(), (pce, nce, sig_ce)
+
+    def loss_fn(mesh, params, biases, seed, pos_ids, pos_mask, pos_labels,
+                neg_ids, neg_mask, neg_labels):
+        # one forward over [positives; negatives]
         b = pos_ids.shape[0]
         ids = torch.cat([pos_ids, neg_ids])
         mask = torch.cat([pos_mask, neg_mask])
@@ -121,26 +151,25 @@ def make_train_step(
                                    deterministic=not dropout,
                                    dropout_seed=seed, pos_biases=biases)
         ce_tok = token_ce_per_token(logits, labels)
-        count = (labels != -100).sum(dim=-1).clamp_min(1)
-        ce_all = ce_tok.sum(dim=-1) / count
-        pce, nce = ce_all[:b], ce_all[b:]
-        if loss == "pair":
-            main = pce.mean() + nce.mean()
-            sig_p, sig_n = ce_tok[:b].reshape(-1), ce_tok[b:].reshape(-1)
-            sig_ce = (sig_p + sig_n) / 2.0
-        else:
-            if label_grouping == "flat_tokens":
-                sig_ce = lce_ce_flat_tokens(ce_tok[:b], ce_tok[b:], n,
-                                            use_mean)
-            else:
-                sig_ce = lce_ce(pce, nce, n, use_mean)
-            main = sig_ce.mean()
-            sig_p, sig_n = pce, nce
-        first = logits[:, 0, :]
-        aux = (sig_p, sig_n, sig_ce, first[:b], first[b:])
-        return main, tuple(a.detach() for a in aux)
+        main, sig = objective(ce_tok, labels, b)
+        if mesh is not None:
+            # every rank's rows, as one process holds the global batch
+            # ([all positives; all negatives]), and the loss on them on
+            # every rank (_GatherRows carries the gradient back to each
+            # rank's rows)
+            def every(t, gather):
+                g = gather(t[None], mesh)  # (row_size, rows, ...)
+                return torch.cat([g[:, :b].flatten(0, 1),
+                                  g[:, b:].flatten(0, 1)])
+
+            main, _ = objective(every(ce_tok, gather_batch_with_grad),
+                                every(labels, gather_batch),
+                                b * mesh.row_size)
+        first = logits[:, 0, :].detach()
+        return main, (*(a.detach() for a in sig), first[:b], first[b:])
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
+        mesh = current_mesh()
         B = batch["pos_ids"].shape[0]
         # Position biases once per step, not per microbatch (step.py:
         # 165-178): the microbatches differentiate against the bias
@@ -178,13 +207,17 @@ def make_train_step(
         seeds = (torch.randint(2**63 - 1, (len(chunks),),
                                generator=state.dropout_generator).tolist()
                  if dropout else [None] * len(chunks))
+        if dropout and mesh is not None:
+            # the ranks' generators agree: one stream a rank, so that no two
+            # ranks draw the same masks for their rows
+            seeds = [(s + mesh.row_rank) % (2**63 - 1) for s in seeds]
         grads = None
         main_loss = torch.zeros((), dtype=torch.float32,
                                 device=batch["pos_ids"].device)
         auxes = []
         for chunk, seed in zip(chunks, seeds):
             with torch.enable_grad():
-                l_i, aux_i = loss_fn(params_c, biases, seed, *chunk)
+                l_i, aux_i = loss_fn(mesh, params_c, biases, seed, *chunk)
                 g_i = torch.autograd.grad(l_i, leaves, allow_unused=True)
             g_i = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(g_i, leaves)]
@@ -204,6 +237,10 @@ def make_train_step(
 
         # the optimizer and the bias fold run in fp32 (step.py:288-305)
         grads = [g.float() for g in grads]
+        if mesh is not None:
+            # one global-batch step: the ranks' gradients averaged before
+            # the optimizer (and so before its clipping)
+            grads = mean_over_ranks(grads, mesh)
         gbias = grads[len(flat):]
         grads = t5.unflatten_params(dict(zip(flat, grads[:len(flat)])))
         if model_cfg.fused_qkv:
@@ -220,6 +257,15 @@ def make_train_step(
         with torch.no_grad():
             p_prob = relevance_probs(p_first, rel_id, nrel_id)
             n_prob = relevance_probs(n_first, rel_id, nrel_id)
+            neg_rank = batch.get("neg_rank")
+            if mesh is not None:
+                # the global batch's signals on every rank, in row order, so
+                # that the ranks' curricula stay one
+                sig_p, sig_n, sig_ce, p_prob, n_prob = (
+                    gather_batch(t, mesh)
+                    for t in (sig_p, sig_n, sig_ce, p_prob, n_prob))
+                if neg_rank is not None:
+                    neg_rank = gather_batch(neg_rank, mesh)
             n_prob_first = n_prob.reshape(-1, n)[:, 0] if n > 1 else n_prob
             signals = StepSignals(
                 pce=sig_p,
@@ -241,8 +287,8 @@ def make_train_step(
                                                               signals)
         else:
             metrics["success_rate"] = pair_acc
-        if "neg_rank" in batch:
-            metrics["neg_rank"] = batch["neg_rank"].mean()
+        if neg_rank is not None:
+            metrics["neg_rank"] = neg_rank.mean()
         if hasattr(controller, "meta_loss"):
             metrics["meta_loss"] = controller.meta_loss(state.curriculum,
                                                         signals)
@@ -255,23 +301,38 @@ def make_train_step(
 
 
 def make_fused_step(corpus, step_fn, controller, loss: str = "pair",
-                    n_neg_per_example: int = 1):
+                    n_neg_per_example: int = 1,
+                    negative_parallel: bool = False):
     """fused(state, pair_idx) = difficulty -> negatives -> gather prompts ->
     step, all on the corpus's device (step.py:362-408). LCE draws its n
     negatives with ``state.generator``; the pair loss takes the pool slot
-    the difficulty names and draws nothing."""
+    the difficulty names and draws nothing.
+
+    Under a mesh ``pair_idx`` is the global batch on every rank, and every
+    rank draws the global batch's negatives with the same generator state
+    (the generators stay one, and the draws are one process's); each rank
+    assembles and steps on its rows only: the positives of its block of
+    pairs over data x seq and their negatives. That is also the row split
+    of JAX's ``negative_parallel`` (B positives and B*n example-major
+    negatives, each over data x seq), so the flag is accepted for the JAX
+    signature and changes nothing: in the port the seq axis is plain data
+    parallelism. The pairs must divide data x seq, or it raises."""
+    del negative_parallel
     if loss not in ("pair", "lce"):
         raise ValueError(loss)
     default_corpus = corpus
+    n = n_neg_per_example
 
     def fused(state: TrainState, pair_idx: torch.Tensor, corpus=None):
         corpus = default_corpus if corpus is None else corpus
         difficulty = controller.difficulty(state.curriculum)
         if loss == "lce":
+            rows = (None if current_mesh() is None
+                    else local_rows(torch.arange(pair_idx.shape[0])))
             batch = corpus.lce_batch(state.generator, pair_idx, difficulty,
-                                     n_neg_per_example)
+                                     n, rows=rows)
         else:
-            batch = corpus.pair_batch(pair_idx, difficulty)
+            batch = corpus.pair_batch(local_rows(pair_idx), difficulty)
         return step_fn(state, batch)
 
     return fused

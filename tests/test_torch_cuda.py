@@ -1027,3 +1027,74 @@ def test_double_backward_through_k2b_raises(cuda):
     (gq,) = torch.autograd.grad(out.square().sum(), q, create_graph=True)
     (gk,) = torch.autograd.grad(gq.float().square().sum(), k)
     assert torch.isfinite(gk).all() and gk.abs().max() > 0
+
+
+def _refresh_env(quantize: bool):
+    """A 2 + 2-layer bf16 model with flash_v3 over 256 docs of 72 tokens
+    (K3 in every encode batch), in slices of 96 docs (a short last one)."""
+    from pacednegatives_tpu_torch.train.online import OnlineMiningConfig
+
+    cfg = t5.T5Config(vocab_size=512, d_model=128, d_kv=64, d_ff=256,
+                      num_heads=2, num_layers=2, num_decoder_layers=2,
+                      dtype=torch.bfloat16, flash_v3=True)
+    params = t5.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    corpus = TextCorpus.synthetic(num_docs=256, num_queries=8, seed=0,
+                                  doc_len=80, query_len=4)
+    store = TokenizedStore.build(corpus, HashTokenizer(512), max_q_tokens=8,
+                                 max_d_tokens=72)
+    triples = TripletStore.synthetic(corpus, n_pairs=8, n_neg=4, seed=1)
+    dc = DeviceCorpus.build(store, triples, device="cuda")
+    mining = OnlineMiningConfig(pool_size=8, encode_batch=32,
+                                quantize=quantize, refresh_rows_per_call=96)
+    return cfg, params, dc, mining
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_side_stream_refresh_matches_serial(cuda, quantize):
+    """OverlappedRefresher on the training card (its own CUDA stream,
+    launched from its thread) against make_refresh_fn on the default
+    stream: the same bits, and K3's core launched from the refresh thread
+    (2 layers x 8 batches of 32)."""
+    from pacednegatives_tpu_torch.train.online import make_refresh_fn
+    from pacednegatives_tpu_torch.train.overlap import OverlappedRefresher
+
+    cfg, params, dc, mining = _refresh_env(quantize)
+    serial = make_refresh_fn(dc, cfg, mining)(params)
+    ref = OverlappedRefresher(dc, cfg, mining)
+    try:
+        before = flash.flash_attention_forward.launches
+        ref.start(params)
+        got = ref.collect()
+        assert flash.flash_attention_forward.launches - before == 2 * 8
+    finally:
+        ref.close()
+    got = got if quantize else (got,)
+    serial = serial if quantize else (serial,)
+    for a, b in zip(got, serial):
+        assert torch.equal(a, b)
+
+
+def test_side_stream_refresh_reads_the_trigger_params(cuda):
+    """A refresh started, then the params written in place on the default
+    stream while it runs, and memory churned through the caching allocator:
+    the refresh still encodes the params it was started with (the snapshot
+    is ordered before the side stream and held by record_stream)."""
+    from pacednegatives_tpu_torch.train.online import make_refresh_fn
+    from pacednegatives_tpu_torch.train.overlap import OverlappedRefresher
+
+    cfg, params, dc, mining = _refresh_env(False)
+    want = make_refresh_fn(dc, cfg, mining)(params)
+    ref = OverlappedRefresher(dc, cfg, mining)
+    try:
+        ref.start(params)
+        for _ in range(20):
+            for p in t5.flatten_params(params).values():
+                p.mul_(1.01).add_(0.001)
+            junk = [torch.randn(1 << 20, device="cuda") for _ in range(8)]
+            del junk
+        got = ref.collect()
+    finally:
+        ref.close()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, make_refresh_fn(dc, cfg, mining)(params))

@@ -13,6 +13,7 @@ import torch
 
 from pacednegatives_tpu.index import DenseIndex as JDenseIndex
 from pacednegatives_tpu_torch.index import DenseIndex
+from pacednegatives_tpu_torch.parallel.mesh import Mesh
 
 # blockwise tiling small enough for 2048 docs: 8 blocks, k' below k
 KW = {"block_n": 256, "k_per_block": 8}
@@ -85,14 +86,23 @@ def test_refreshed_matches_jax(quantize):
     _, i1 = tix.topk(torch.from_numpy(q), 5)
     _, i2 = tix2.topk(torch.from_numpy(q), 5)
     assert torch.equal((i1 + 1) % 2048, i2)
+    # one contract: the index's own row count (a rank's shard under a mesh)
+    with pytest.raises(ValueError, match="refreshed takes"):
+        tix.refreshed(torch.from_numpy(d2[:1024]))
 
 
 def test_mesh_and_approx_are_not_ported():
+    """The sharded index is ported (tests/test_torch_multiproc.py runs it
+    across ranks): a shard count that does not divide the docs raises, a
+    one-rank mesh holds every row. ``method="approx"`` is not carried
+    over."""
     d = torch.zeros((16, 8))
-    with pytest.raises(NotImplementedError, match="slice R"):
-        DenseIndex.build(d, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice R"):
-        DenseIndex(d, mesh=object())
+    with pytest.raises(ValueError, match="shard evenly"):
+        DenseIndex.build(d, mesh=Mesh(3, 1, 1, torch.device("cpu")),
+                         device="cpu")
+    one = DenseIndex.build(d, mesh=Mesh(1, 1, 1, torch.device("cpu")),
+                           device="cpu")
+    assert one.num_docs == one.shard_docs == 16
     with pytest.raises(NotImplementedError, match="approx"):
         DenseIndex.build(d, method="approx", device="cpu").topk(d[:2], 3)
 

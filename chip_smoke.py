@@ -151,7 +151,26 @@ Phases, one JSON line each (any failure exits non-zero):
              steps then the refresh (seconds, launches), a profiled window
              (the side stream's K1 beside the main stream's kernels), and
              the loop's swap one chunk after the serial loop's; (d) with
-             two cards, (b)'s dp2 over NCCL, else "not run: 1 card".
+             two cards, (b)'s dp2 over NCCL, else "not run: 1 card";
+13. tensor - tensor parallelism (a mesh's ``model`` axis): K1 and K2b
+             against their plain versions at a tp2 rank's shape (32 rows,
+             6 heads, L 256); 4 gloo ranks sharing the card
+             (``--tensor-rank``) run one online step of t5-base on
+             dp2 x tp2 (the 2,048-doc int8 index in two 1,024-doc shards,
+             K6 once a rank), then 2 of them 2 fused LCE steps on dp1 x
+             tp2 (bf16, fused_qkv, chunked attention with the kernels at
+             L 256: 24 query + 228 doc + 4 template tokens; 8 pairs x
+             (1 + 3)); each rank holds 6 of the 12 heads and runs K1 and
+             K2b on them, 12 each a step. Against the one process: the
+             losses and step 1's per-leaf gradients at phase 5's gates,
+             the whole state the same on every rank, launches, peak MiB
+             and seconds a step a rank; every weight moved after step 2.
+             With two cards the steps over NCCL, else "not run: 1 card".
+
+The CPU side of phases 4, 8 and 10's card-against-CPU checks runs in a
+background process of this script (``--cpu-job``, no card in sight, half
+the cores) while the card phases go on; those comparisons are made after
+phase 11, before the multi-process phases (a ``cpu_reference`` line).
 
 Then a JSON line with one entry per kernel (its time beside its bound, its
 plain version's and, where one PyTorch call computes the same function,
@@ -167,10 +186,13 @@ import datetime
 import gc
 import json
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -247,7 +269,10 @@ from pacednegatives_tpu_torch.ops.mips import (
 )
 from pacednegatives_tpu_torch.optim import tree_leaves
 from pacednegatives_tpu_torch.parallel import MeshConfig, create_mesh
-from pacednegatives_tpu_torch.parallel.collectives import gather_batch
+from pacednegatives_tpu_torch.parallel.collectives import (
+    gather_batch,
+    gather_model,
+)
 from pacednegatives_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed,
 )
@@ -268,6 +293,11 @@ from pacednegatives_tpu_torch.train.online import (
 )
 from pacednegatives_tpu_torch.train.overlap import OverlappedRefresher
 from pacednegatives_tpu_torch.train.runner import load_run
+from pacednegatives_tpu_torch.train.state import (
+    encoder_weights,
+    gather_train_state,
+    shard_train_state,
+)
 from pacednegatives_tpu_torch.train.scored_pool import (
     balanced_slots,
     make_scored_pool_step,
@@ -457,6 +487,144 @@ def check(name: str, err: float, tol: float, **fields) -> dict:
     if not ok:
         raise AssertionError(f"{name}: max |diff| {err} > tolerance {tol}")
     return {"max_abs_err": err, **fields}
+
+
+# The card-against-CPU checks of phases 4, 8 and 10 need the port's
+# t5-base forwards on the CPU (~250 s on 8 cores). They run in one
+# background process, a job at a time on half the cores, while the card
+# phases go on; each comparison is made once phase 11 has ended, before
+# the multi-process phases 12 and 13 (which would compete for the cores).
+CPU_THREADS = max(1, len(os.sched_getaffinity(0)) // 2)
+CPU_REFERENCE_TIMEOUT_S = 600
+
+
+def _serve_block_cpu(params, cfg, store, corpus, rel_id, nrel_id, q_rows,
+                     d_rows) -> np.ndarray:
+    """Phase 4's first block through the port's Reranker on the CPU."""
+    rr = Reranker(params, cfg, store, corpus, rel_id=rel_id, nrel_id=nrel_id,
+                  batch_size=len(q_rows), device="cpu")
+    return rr._score_block(q_rows, d_rows, None)
+
+
+def _eval_scores_cpu(run_dir, corpus, q_rows, d_rows) -> dict:
+    """Phase 8's pairs scored by phase 5's run on the CPU, bf16 and int8."""
+    out = {}
+    for label, int8_on in (("bf16", False), ("int8", True)):
+        params, mcfg, tok, rc = load_run(run_dir, device="cpu")
+        store = TokenizedStore.build(corpus, tok,
+                                     max_q_tokens=rc.max_q_tokens,
+                                     max_d_tokens=rc.max_d_tokens)
+        rr = Reranker(params, mcfg, store, corpus, rel_id=tok.true_id,
+                      nrel_id=tok.false_id, batch_size=len(q_rows) // 2,
+                      int8=int8_on, device="cpu")
+        out[label] = rr.score_pairs(q_rows, d_rows)
+        del params, rr
+    return out
+
+
+def _candidate_scores(params, cfg, ids, mask, rel_id, nrel_id) -> dict:
+    """Phase 10's candidates scored bf16 and int8_bf16 on ``ids``' device."""
+    kw = dict(rel_id=rel_id, nrel_id=nrel_id)
+    with torch.no_grad():
+        return {"bf16": score_batch(params, cfg, ids, mask, **kw).float(),
+                "int8_bf16": score_batch_int8(
+                    quantize_scoring_params(params, cfg), cfg, ids, mask,
+                    stream_dtype=torch.bfloat16, **kw).float()}
+
+
+CPU_JOBS = {"serve_block": _serve_block_cpu, "eval_scores": _eval_scores_cpu,
+            "candidate_scores": _candidate_scores}
+
+
+def _cpu_job(path: str) -> None:
+    """A job of the background process (``--cpu-job``): its inputs from
+    ``path.in``, its result and CPU seconds to ``path.out``."""
+    torch.set_num_threads(CPU_THREADS)
+    job = torch.load(path + ".in", weights_only=False)
+    t0 = time.perf_counter()
+    out = CPU_JOBS[job["fn"]](**job["inputs"])
+    torch.save({"out": out, "cpu_seconds": time.perf_counter() - t0},
+               path + ".tmp")
+    os.replace(path + ".tmp", path + ".out")
+
+
+class CpuReference:
+    """The CPU side of the card-against-CPU checks, run in the background:
+    ``submit`` queues a job (a process of this script with no card in
+    sight, started when the one before it has ended), ``finish`` waits for
+    all of them and hands each result to its comparison, ``close`` kills
+    what still runs."""
+
+    def __init__(self):
+        self.dir, self.thread, self.proc = None, None, None
+        self.jobs, self.queue = [], queue.Queue()
+        self.lock, self.closed = threading.Lock(), False
+
+    def submit(self, name: str, fn: str, compare, **inputs) -> None:
+        if self.thread is None:
+            self.dir = tempfile.mkdtemp(prefix="cpu_reference_")
+            self.thread = threading.Thread(target=self._run, daemon=True)
+            self.thread.start()
+        path = os.path.join(self.dir, name)
+        torch.save({"fn": fn, "inputs": inputs}, path + ".in")
+        self.jobs.append((name, path, compare))
+        self.queue.put(path)
+
+    def _run(self) -> None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(CPU_THREADS),
+                   PYTHONPATH=os.pathsep.join(
+                       [here, os.environ.get("PYTHONPATH", "")]))
+        while (path := self.queue.get()) is not None:
+            with self.lock:
+                if self.closed:
+                    return
+                err = open(path + ".err", "w")
+                self.proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--cpu-job",
+                     path], cwd=here, env=env, stdout=subprocess.DEVNULL,
+                    stderr=err)
+            self.proc.wait()
+            err.close()
+
+    def finish(self) -> None:
+        if self.thread is None:
+            return
+        t0 = time.perf_counter()
+        self.queue.put(None)
+        self.thread.join(timeout=CPU_REFERENCE_TIMEOUT_S)
+        if self.thread.is_alive():
+            raise AssertionError("CPU reference: not done in "
+                                 f"{CPU_REFERENCE_TIMEOUT_S} s")
+        results = {}
+        for name, path, _ in self.jobs:
+            if not os.path.exists(path + ".out"):
+                with open(path + ".err") as f:
+                    raise AssertionError(f"CPU reference {name}:\n"
+                                         f"{f.read()[-6000:]}")
+            results[name] = torch.load(path + ".out", weights_only=False)
+        emit("cpu_reference", threads=CPU_THREADS,
+             waited_s=time.perf_counter() - t0,
+             cpu_seconds={name: r["cpu_seconds"]
+                          for name, r in results.items()})
+        for name, _, compare in self.jobs:
+            compare(results[name])
+
+    def close(self) -> None:
+        with self.lock:
+            self.closed = True
+            if self.proc is not None and self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.queue.put(None)
+        if self.thread is not None:
+            self.thread.join()
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+CPU_REFERENCE = CpuReference()
 
 
 def bound(nbytes: float, flops: float, kind: str) -> dict:
@@ -1150,21 +1318,25 @@ def phase_slice() -> dict:
     rr, unpacked = _serve("unpacked", params, cfg, store, corpus, tok)
 
     # first block: the same port on the CPU with the same weights, through
-    # the plain versions
+    # the plain versions (in the background; compared after phase 11)
     q0, d0 = unpacked["q_rows"][:B_SERVE], unpacked["d_rows"][:B_SERVE]
     gpu = rr._score_block(q0, d0, None)
-    t0 = time.perf_counter()
-    cpu_rr = Reranker(t5.tree_map(lambda t: t.cpu(), params), cfg, store,
-                      corpus, rel_id=tok.true_id, nrel_id=tok.false_id,
-                      batch_size=B_SERVE, device="cpu")
-    cpu = cpu_rr._score_block(q0, d0, None)
-    err = float(np.abs(gpu - cpu).max())
-    same_top = int((np.argsort(-gpu)[:10] == np.argsort(-cpu)[:10]).sum())
-    emit("slice", check="first_block_vs_cpu", max_abs_err=err, tol=SCORE_ATOL,
-         ok=err <= SCORE_ATOL, cpu_seconds=time.perf_counter() - t0,
-         top10_same_positions=same_top)
-    if err > SCORE_ATOL:
-        raise AssertionError(f"first block: GPU vs CPU max |diff| {err}")
+
+    def compare(ref: dict) -> None:
+        cpu = ref["out"]
+        err = float(np.abs(gpu - cpu).max())
+        same_top = int((np.argsort(-gpu)[:10] == np.argsort(-cpu)[:10]).sum())
+        emit("slice", check="first_block_vs_cpu", max_abs_err=err,
+             tol=SCORE_ATOL, ok=err <= SCORE_ATOL,
+             cpu_seconds=ref["cpu_seconds"], top10_same_positions=same_top)
+        if err > SCORE_ATOL:
+            raise AssertionError(f"first block: GPU vs CPU max |diff| {err}")
+
+    CPU_REFERENCE.submit(
+        "first_block", "serve_block", compare,
+        params=t5.tree_map(lambda t: t.cpu(), params), cfg=cfg, store=store,
+        corpus=corpus, rel_id=tok.true_id, nrel_id=tok.false_id, q_rows=q0,
+        d_rows=d0)
 
     vcorpus = _variable_corpus(max_d=160)
     vstore = TokenizedStore.build(vcorpus, tok, max_q_tokens=24,
@@ -2077,26 +2249,30 @@ def phase_evaluate(smi: str, run_dir: str) -> dict:
                              for _ in range(EVAL_DEPTH)], np.int64)
         d_rows = np.asarray([corpus.doc_index[d] for q in qids
                              for d in first[q][:EVAL_DEPTH]], np.int64)
-    checks, card = {}, {}
-    for label, int8_on, tol in (("bf16", False, SCORE_ATOL),
-                                ("int8", True, INT8_SCORE_ATOL)):
-        got = {}
-        t0 = time.perf_counter()
-        for dev in ("cuda", "cpu"):
-            params, mcfg, tok, rc = load_run(run_dir, device=dev)
-            store = TokenizedStore.build(corpus, tok,
-                                         max_q_tokens=rc.max_q_tokens,
-                                         max_d_tokens=rc.max_d_tokens)
-            rr = Reranker(params, mcfg, store, corpus, rel_id=tok.true_id,
-                          nrel_id=tok.false_id, batch_size=len(q_rows) // 2,
-                          int8=int8_on, device=dev)
-            got[dev] = rr.score_pairs(q_rows, d_rows)
-            del params, rr
-        card[label] = got["cuda"]
-        err = float(np.abs(got["cuda"] - got["cpu"]).max())
-        checks[label] = check(f"evaluate_{label}_scores_vs_cpu", err, tol,
-                              pairs=len(q_rows),
-                              seconds=time.perf_counter() - t0)
+    card = {}
+    for label, int8_on in (("bf16", False), ("int8", True)):
+        params, mcfg, tok, rc = load_run(run_dir, device="cuda")
+        store = TokenizedStore.build(corpus, tok,
+                                     max_q_tokens=rc.max_q_tokens,
+                                     max_d_tokens=rc.max_d_tokens)
+        rr = Reranker(params, mcfg, store, corpus, rel_id=tok.true_id,
+                      nrel_id=tok.false_id, batch_size=len(q_rows) // 2,
+                      int8=int8_on, device="cuda")
+        card[label] = rr.score_pairs(q_rows, d_rows)
+        del params, rr
+    # the same pairs on the CPU (in the background; compared after phase 11)
+    checks = {}
+
+    def compare(ref: dict) -> None:
+        for label, tol in (("bf16", SCORE_ATOL), ("int8", INT8_SCORE_ATOL)):
+            err = float(np.abs(card[label] - ref["out"][label]).max())
+            checks[label] = check(f"evaluate_{label}_scores_vs_cpu", err,
+                                  tol, pairs=len(q_rows),
+                                  cpu_seconds=ref["cpu_seconds"])
+
+    CPU_REFERENCE.submit("evaluate_pairs", "eval_scores", compare,
+                         run_dir=run_dir, corpus=corpus, q_rows=q_rows,
+                         d_rows=d_rows)
     top10 = [len(set(np.argsort(-card["bf16"][i:i + EVAL_DEPTH])[:10])
                  & set(np.argsort(-card["int8"][i:i + EVAL_DEPTH])[:10]))
              for i in range(0, len(q_rows), EVAL_DEPTH)]
@@ -2586,8 +2762,9 @@ def _scored_cli(smi: str, layers: int) -> dict:
 def _scored_vs_cpu() -> dict:
     """The first step's candidates of 10a's first pairs (pair rows 0 and 1
     of the unshuffled stream, the runner's seed-42 weights, 64 balanced
-    slots of each pool) scored on the card and by the port on the CPU:
-    bf16 (K3 on the card, its plain version on the CPU) and int8_bf16."""
+    slots of each pool) scored on the card and by the port on the CPU (in
+    the background; compared after phase 11): bf16 (K3 on the card, its
+    plain version on the CPU) and int8_bf16."""
     tok = HashTokenizer(vocab_size=32128)
     corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
     store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
@@ -2603,32 +2780,27 @@ def _scored_vs_cpu() -> dict:
     ids, mask = dc.assemble(dc.query_rows[pairs].repeat_interleave(SCORED_C),
                             dc.pools[pairs][:, slots].reshape(-1))
     kw = dict(rel_id=tok.true_id, nrel_id=tok.false_id)
-    out, card = {}, {}
-    for label, tol in (("bf16", SCORE_ATOL),
-                       ("int8_bf16", INT8_BF16_SCORE_ATOL)):
-        got = {}
-        t0 = time.perf_counter()
-        for dev in ("cuda", "cpu"):
-            p = t5.tree_map(lambda t: t.to(dev), params)
-            i, m = ids.to(dev), mask.to(dev)
-            with torch.no_grad():
-                if label == "bf16":
-                    s = score_batch(p, cfg, i, m, **kw)
-                else:
-                    s = score_batch_int8(quantize_scoring_params(p, cfg),
-                                         cfg, i, m, stream_dtype=torch
-                                         .bfloat16, **kw)
-            got[dev] = s.float().cpu().view(SCORED_CHECK_PAIRS, SCORED_C)
-        same_order = int((torch.argsort(got["cuda"], dim=1, stable=True)
-                          == torch.argsort(got["cpu"], dim=1, stable=True))
-                         .sum())
-        card[label] = got["cuda"]
-        out[label] = check(f"scored_candidates_{label}_vs_cpu",
-                           max_abs(got["cuda"], got["cpu"]), tol,
-                           rows=SCORED_CHECK_PAIRS * SCORED_C,
-                           same_order_positions=same_order,
-                           score_std=got["cuda"].std().item(),
-                           seconds=time.perf_counter() - t0)
+    card = {label: s.cpu().view(SCORED_CHECK_PAIRS, SCORED_C) for label, s
+            in _candidate_scores(params, cfg, ids, mask, **kw).items()}
+    out = {}
+
+    def compare(ref: dict) -> None:
+        for label, tol in (("bf16", SCORE_ATOL),
+                           ("int8_bf16", INT8_BF16_SCORE_ATOL)):
+            cpu = ref["out"][label].view(SCORED_CHECK_PAIRS, SCORED_C)
+            same_order = int((torch.argsort(card[label], dim=1, stable=True)
+                              == torch.argsort(cpu, dim=1, stable=True))
+                             .sum())
+            out[label] = check(f"scored_candidates_{label}_vs_cpu",
+                               max_abs(card[label], cpu), tol,
+                               rows=SCORED_CHECK_PAIRS * SCORED_C,
+                               same_order_positions=same_order,
+                               score_std=card[label].std().item(),
+                               cpu_seconds=ref["cpu_seconds"])
+
+    CPU_REFERENCE.submit("scored_candidates", "candidate_scores", compare,
+                         params=t5.tree_map(lambda t: t.cpu(), params),
+                         cfg=cfg, ids=ids.cpu(), mask=mask.cpu(), **kw)
     # as information: the int8 scorer's own noise on these rows
     out["int8_bf16_vs_bf16_on_card"] = max_abs(card["int8_bf16"],
                                                card["bf16"])
@@ -3545,13 +3717,15 @@ def _parallel_rank(work: str, rank: int, backend: str, worlds: list) -> None:
         json.dump(out, f)
 
 
-def _spawn_ranks(work: str, backend: str, worlds: list) -> list[dict]:
-    """Start ``max(worlds)`` rank processes of this script and wait for
-    them (killed if they outlive RANKS_TIMEOUT_S); their results."""
+def _spawn_ranks(work: str, backend: str, worlds: list,
+                 flag: str = "--parallel-rank") -> list[dict]:
+    """Start ``max(worlds)`` rank processes of this script (``flag``:
+    phase 12's or phase 13's) and wait for them (killed if they outlive
+    RANKS_TIMEOUT_S); their results."""
     here = os.path.dirname(os.path.abspath(__file__))
     n = max(worlds)
     cmd = lambda r: [sys.executable, os.path.abspath(__file__),
-                     "--parallel-rank", str(r), work, backend,
+                     flag, str(r), work, backend,
                      ",".join(map(str, worlds))]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here, os.environ.get("PYTHONPATH", "")]))
@@ -3887,6 +4061,310 @@ def phase_parallel(smi: str) -> dict:
                          "parallel_overlap": overlap["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor parallelism
+# ---------------------------------------------------------------------------
+
+# t5-base split over 2 ranks: each holds 6 of the 12 heads, 1,536 of the
+# 3,072 FFN columns and 16,064 of the 32,128 vocab rows. Prompts of 256
+# tokens (24 query + 228 doc + 4 template) take the chunked attention
+# kernels in 256-key chunks: K1 forward and K2b backward (the route of the
+# model's 12 heads at L 256), 12 each a step on each rank.
+TENSOR_PAIRS, TENSOR_NEG, TENSOR_STEPS = 8, 3, 2
+TENSOR_ROWS = TENSOR_PAIRS * (1 + TENSOR_NEG)
+TENSOR_MAX_D, TENSOR_L = 228, 256
+TENSOR_HEADS = 6  # a tp2 rank's
+# the online step's pools: 32 mined docs a query (K6 over a 1,024-doc
+# shard of the 2,048-doc index, one block, 32 candidates a block)
+TENSOR_POOL = 31
+
+
+def _tensor_cfg() -> t5.T5Config:
+    return _chunked_cfg(True, chunk=TENSOR_L, residual="fp32")
+
+
+def _tensor_env() -> tuple:
+    cfg = _tensor_cfg()
+    tok, dc, params, ctrl, _ = _step_env(cfg, TENSOR_MAX_D, TENSOR_PAIRS,
+                                         TENSOR_NEG)
+    return cfg, tok, dc, params, ctrl
+
+
+def _tensor_tx():
+    # no clipping: step 1's first moment is 0.1 x the unclipped gradient
+    return make_optimizer(1e-3, total_steps=8, warmup_steps=1,
+                          grad_clip=None)
+
+
+def _whole_flat(state, mesh) -> tuple:
+    """(the whole state, its flat first moment): gathered over the model
+    group under a mesh."""
+    whole = state if mesh is None else gather_train_state(mesh, state)
+    return whole, {k: v for k, v in
+                   t5.flatten_params(whole.opt_state.mu).items()}
+
+
+def _tensor_steps(env: tuple, mesh=None) -> dict:
+    """``TENSOR_STEPS`` fused LCE steps on pairs 0..7 with the state split
+    over ``mesh``'s model group: losses, step 1's whole first moment,
+    launches and seconds a step, peak MiB, the leaves that moved."""
+    cfg, tok, dc, params, ctrl = env
+    tx = _tensor_tx()
+    step = _make_step(cfg, tok, ctrl, tx, TENSOR_NEG)
+    fused = make_fused_step(dc, step, ctrl, loss="lce",
+                            n_neg_per_example=TENSOR_NEG)
+    pairs = torch.arange(TENSOR_PAIRS, device="cuda")
+    out = {"losses": [], "launches": [], "step_s": []}
+    with mesh if mesh is not None else contextlib.nullcontext():
+        state = init_train_state(params, tx, ctrl.init("cuda"),
+                                 seed=PARALLEL_SEED)
+        if mesh is not None:
+            state = shard_train_state(mesh, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TENSOR_STEPS):
+            before = _launches()
+            t0 = time.perf_counter()
+            state, metrics = fused(state, pairs)
+            out["losses"].append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["launches"].append({k: v - before[k]
+                                    for k, v in _launches().items()})
+            if i == 0:
+                _, out["mu1"] = _whole_flat(state, mesh)
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        whole, _ = _whole_flat(state, mesh)
+    init = t5.flatten_params(params)
+    final = t5.flatten_params(whole.params)
+    out["moved"] = sum(not torch.equal(final[k], init[k]) for k in init)
+    out["leaves"] = len(init)
+    out["final"] = final
+    return out
+
+
+def _tensor_online(env: tuple, mesh=None) -> dict:
+    """One online step on pairs 0..7: the int8 index refreshed with whole
+    weights (gathered over the model group), then the step (the queries
+    embedded split, K6 on this rank's shard, the merge, the split LCE
+    step): its loss and launches."""
+    cfg, tok, dc, params, ctrl = env
+    tx = _tensor_tx()
+    mining = OnlineMiningConfig(pool_size=TENSOR_POOL, encode_batch=128,
+                                quantize=True)
+    step = _make_step(cfg, tok, ctrl, tx, TENSOR_NEG)
+    online = make_online_fused_step(dc, step, ctrl, cfg, mining, TENSOR_NEG)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        state = init_train_state(params, tx, ctrl.init("cuda"),
+                                 seed=PARALLEL_SEED)
+        if mesh is not None:
+            state = shard_train_state(mesh, state)
+        index = make_refresh_fn(dc, cfg, mining)(encoder_weights(state, mesh))
+        torch.cuda.synchronize()
+        before = _launches()
+        t0 = time.perf_counter()
+        (state, _), metrics = online((state, index),
+                                     torch.arange(TENSOR_PAIRS,
+                                                  device="cuda"))
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used = {k: v - before[k] for k, v in _launches().items()}
+        _, mu = _whole_flat(state, mesh)
+    return {"loss": loss, "launches": used, "step_s": seconds,
+            "index_rows": index[0].shape[0], "mu": mu}
+
+
+def _checksums(flat: dict, mesh) -> bool:
+    """True if every rank of the model group holds the same tensors."""
+    sums = torch.stack([v.double().sum() for v in flat.values()])
+    every = gather_model(sums[None], 0, mesh)
+    return bool((every == every[0]).all())
+
+
+def _tensor_rank(work: str, rank: int, backend: str, worlds: list) -> None:
+    """One rank of phase 13, in a process of its own (``python3
+    chip_smoke.py --tensor-rank ...``): world 4, a dp2 x tp2 mesh and the
+    online step; world 2, a dp1 x tp2 mesh and the fused steps; rank 0
+    then runs both in one process and holds the ranks' results against
+    them. Writes ``<work>/rank<rank>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels.library()  # the parent built it: loaded, not rebuilt
+    env = _tensor_env()
+    out, kept = {"rank": rank, "backend": backend}, {}
+    for world in worlds:
+        if rank >= world:
+            break
+        maybe_initialize_distributed(
+            f"file://{os.path.join(work, f'rendezvous{world}')}", world,
+            rank, backend=backend, device="cuda",
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S // 2))
+        try:
+            if world == 4:
+                mesh = create_mesh(MeshConfig(data=2, model=2), "cuda")
+                r = _tensor_online(env, mesh)
+                kept["online"] = r
+                out["online_dp2_tp2"] = dict(
+                    world=world, loss=r["loss"], launches=r["launches"],
+                    step_s=r["step_s"], index_rows=r["index_rows"],
+                    same_state_on_every_rank=_checksums(r["mu"], mesh))
+            else:
+                mesh = create_mesh(MeshConfig(data=1, model=2), "cuda")
+                r = _tensor_steps(env, mesh)
+                kept["tp2"] = r
+                out["tp2"] = dict(
+                    world=world, losses=r["losses"], launches=r["launches"],
+                    step_s=r["step_s"], peak_mib=r["peak_mib"],
+                    moved=r["moved"], leaves=r["leaves"],
+                    same_state_on_every_rank=_checksums(
+                        {**r["final"], **{f"mu1.{k}": v
+                                          for k, v in r["mu1"].items()}},
+                        mesh))
+        finally:
+            torch.distributed.destroy_process_group()
+    if rank == 0:
+        if "tp2" in kept:
+            ref = _tensor_steps(env)
+            got = kept["tp2"]
+            out["tp2"].update(
+                _vs_one_process((got["losses"][0], got["mu1"]),
+                                (ref["losses"][0], ref["mu1"])),
+                losses_one_process=ref["losses"],
+                loss2_rel_err=abs(got["losses"][1] - ref["losses"][1])
+                / abs(ref["losses"][1]),
+                launches_one_process=ref["launches"],
+                peak_mib_one_process=ref["peak_mib"],
+                step_s_one_process=ref["step_s"])
+        if "online" in kept:
+            ref = _tensor_online(env)
+            got = kept["online"]
+            out["online_dp2_tp2"].update(
+                loss_one_process=ref["loss"],
+                loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                launches_one_process=ref["launches"],
+                step_s_one_process=ref["step_s"])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _check_tensor(smi: str, label: str, ranks: list[dict]) -> dict:
+    """Each case against the one process (phase 5's gates: step 1's loss
+    and per-leaf gradients; step 2's loss), the same state on every rank,
+    K1 = K2b = 12 a step a rank (K6 once in the online step), every weight
+    moved."""
+    per_step = _per_step(attention=12, core_bwd_k2b=12)
+    fields = {"case": label, "nvidia_smi": smi}
+    ok = True
+    r0 = ranks[0]
+    if "tp2" in r0:
+        held = [r["tp2"] for r in ranks if "tp2" in r]
+        tp = r0["tp2"]
+        fields["tp2"] = {
+            **{k: tp[k] for k in (
+                "losses", "losses_one_process", "loss_rel_err",
+                "loss2_rel_err", "grad_rel_l2_max", "grad_rel_l2_worst_leaf",
+                "grad_rel_l2_median", "peak_mib_one_process",
+                "step_s_one_process", "launches_one_process")},
+            "launches_per_rank": [h["launches"] for h in held],
+            "peak_mib_per_rank": [h["peak_mib"] for h in held],
+            "step_s_per_rank": [h["step_s"] for h in held],
+            "moved": [h["moved"] for h in held], "leaves": tp["leaves"]}
+        ok &= (tp["loss_rel_err"] <= STEP_LOSS_RTOL
+               and tp["loss2_rel_err"] <= STEP_LOSS_RTOL
+               and tp["grad_rel_l2_max"] <= STEP_GRAD_REL_L2
+               and tp["grad_rel_l2_median"] <= STEP_GRAD_REL_L2_MEDIAN
+               and all(h["same_state_on_every_rank"] for h in held)
+               and all(h["moved"] == h["leaves"] for h in held)
+               and all(u == per_step for h in held for u in h["launches"])
+               and all(u == per_step for u in tp["launches_one_process"]))
+    if "online_dp2_tp2" in r0:
+        held = [r["online_dp2_tp2"] for r in ranks]
+        on = r0["online_dp2_tp2"]
+        want = _per_step(attention=12, core_bwd_k2b=12, mips_topk_int8=1)
+        fields["online_dp2_tp2"] = {
+            **{k: on[k] for k in ("loss", "loss_one_process", "loss_rel_err",
+                                  "launches_one_process",
+                                  "step_s_one_process", "index_rows")},
+            "launches_per_rank": [h["launches"] for h in held],
+            "step_s_per_rank": [h["step_s"] for h in held]}
+        ok &= (on["loss_rel_err"] <= STEP_LOSS_RTOL
+               and all(h["same_state_on_every_rank"] for h in held)
+               and all(h["launches"] == want for h in held)
+               and on["launches_one_process"] == want)
+    emit("tensor", **fields)
+    if not ok:
+        raise AssertionError(f"tensor {label}: {fields}")
+    launches = [u for r in ranks for u in (
+        r["tp2"]["launches"] if "tp2" in r else [])] + [
+        r["online_dp2_tp2"]["launches"] for r in ranks
+        if "online_dp2_tp2" in r]
+    return {**fields, "launches": {k: sum(u[k] for u in launches)
+                                   for k in COUNTED}}
+
+
+def _check_k1_tensor(g) -> dict:
+    """K1 as a tp2 rank calls it in the chunked path: its 6 heads of the
+    step's 32 rows at L 256, fp32 output."""
+    B, H, L, dk = TENSOR_ROWS, TENSOR_HEADS, TENSOR_L, 64
+    q, k, v = (_randn(g, B, H, L, dk) for _ in range(3))
+    pos = (torch.randn((H, L, L), generator=g, device="cuda")
+           * 0.5).contiguous()
+    km = _key_mask(g, B, L)
+    ref, rm, rl = flash_attention_forward_plain(q, k, v, pos, km,
+                                                torch.float32)
+    o, m, l = flash_attention_forward(q, k, v, pos, km, torch.float32)
+    check("attention_tp2_rank_m", max_abs(m, rm), 1e-3)
+    check("attention_tp2_rank_l_rel", ((l - rl).abs() / rl).max().item(),
+          1e-3)
+    mask = (pos[None] + km[:, None, None, :]).to(torch.bfloat16)
+    launch = lambda: flash_attention_forward(q, k, v, pos, km, torch.float32)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0)
+    return check(
+        "attention_tp2_rank_out", max_abs(o, ref), 2e-2, shape=[B, H, L, dk],
+        ms=time_ms(launch), host_us=_host_us(launch),
+        plain_ms=time_ms(lambda: flash_attention_forward_plain(
+            q, k, v, pos, km, torch.float32)),
+        library_ms=time_ms(library),
+        # q, k, v in (bf16), out (fp32); pos, key mask in, (m, l) out
+        **bound(3 * B * H * L * dk * 2 + B * H * L * dk * 4
+                + H * L * L * 4 + B * L * 4 + 2 * B * H * L * 4,
+                4 * B * H * L * L * dk, "bf16"))
+
+
+def phase_tensor(smi: str) -> dict:
+    emit("tensor", config="t5-base", dtype="bfloat16",
+         rows_per_step=TENSOR_ROWS, prompt_len=TENSOR_L,
+         heads_per_rank=TENSOR_HEADS, steps=TENSOR_STEPS)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    kernel_checks = {
+        "k1": _check_k1_tensor(g),
+        "k2b": _check_core_bwd(g, "k2b", TENSOR_ROWS, TENSOR_HEADS,
+                               TENSOR_L, TENSOR_L, 64)}
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo_dir = os.path.join(tmp, "gloo")
+        os.makedirs(gloo_dir)
+        ranks = _check_tensor(smi, "gloo_one_card", _spawn_ranks(
+            gloo_dir, "gloo", [4, 2], flag="--tensor-rank"))
+        if torch.cuda.device_count() >= 2:
+            nccl_dir = os.path.join(tmp, "nccl")
+            os.makedirs(nccl_dir)
+            nccl2 = _check_tensor(smi, "nccl_world2", _spawn_ranks(
+                nccl_dir, "nccl", [2], flag="--tensor-rank"))
+        else:
+            nccl2 = "not run: 1 card"
+            emit("tensor", nccl_world2=nccl2)
+    seconds = time.perf_counter() - t_phase
+    emit("tensor", seconds=seconds)
+    return {"kernels": kernel_checks, "ranks": ranks, "nccl_world2": nccl2,
+            "seconds": seconds}
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
            **extra) -> dict:
     """One kernel of the final line, from its phase-3 or phase-7 check."""
@@ -3908,28 +4386,38 @@ def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--parallel-rank"]:
-        # a rank of phase 12, started by phase_parallel
+    if sys.argv[1:2] == ["--cpu-job"]:
+        # a job of the background CPU reference (CpuReference)
+        _cpu_job(sys.argv[2])
+        return 0
+    if sys.argv[1:2] in (["--parallel-rank"], ["--tensor-rank"]):
+        # a rank of phase 12 or 13, started by phase_parallel / _tensor
         rank, work, backend, worlds = sys.argv[2:6]
-        _parallel_rank(work, int(rank), backend,
-                       [int(w) for w in worlds.split(",")])
+        run = (_parallel_rank if sys.argv[1] == "--parallel-rank"
+               else _tensor_rank)
+        run(work, int(rank), backend, [int(w) for w in worlds.split(",")])
         return 0
     t_start = time.perf_counter()
     device, smi = phase_device()
     phase_build()
     k = phase_kernels()
-    s = phase_slice()
-    with tempfile.TemporaryDirectory() as tmp:
-        run_dir = os.path.join(tmp, "run")
-        tr = phase_train(smi, run_dir)
-        ch = phase_chunked(smi)
-        f512 = phase_fused512(smi)
-        dn = phase_dense(smi)
-        ev = phase_evaluate(smi, run_dir)
-        cu = phase_curricula(smi)
-        sc = phase_scored(smi, run_dir)
-    di = phase_distill(smi)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            s = phase_slice()
+            run_dir = os.path.join(tmp, "run")
+            tr = phase_train(smi, run_dir)
+            ch = phase_chunked(smi)
+            f512 = phase_fused512(smi)
+            dn = phase_dense(smi)
+            ev = phase_evaluate(smi, run_dir)
+            cu = phase_curricula(smi)
+            sc = phase_scored(smi, run_dir)
+            di = phase_distill(smi)
+            CPU_REFERENCE.finish()
+    finally:
+        CPU_REFERENCE.close()
     pa = phase_parallel(smi)
+    te = phase_tensor(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
@@ -3943,9 +4431,12 @@ def main() -> int:
              "evaluate_int8": ev["int8"]["launches"],
              "curricula": cu["launches"], **sc["launches"],
              **di["launches"], **pa["launches"],
-             "parallel_gloo_ranks": pa["ranks"]["launches"]}
+             "parallel_gloo_ranks": pa["ranks"]["launches"],
+             "tensor_gloo_ranks": te["ranks"]["launches"]}
     if isinstance(pa["nccl_world2"], dict):
         paths["parallel_nccl_world2"] = pa["nccl_world2"]["launches"]
+    if isinstance(te["nccl_world2"], dict):
+        paths["tensor_nccl_world2"] = te["nccl_world2"]["launches"]
     total = {name: sum(p.get(name, 0) for p in paths.values())
              for name in COUNTED}
     print(json.dumps({"kernels": [
@@ -3963,6 +4454,7 @@ def main() -> int:
                L512_dk128=k["attention"]["L512_dk128"],
                train512_fp32_out=k["attention"]["train512_fp32_out"],
                train768_fp32_out=k["attention"]["train768_fp32_out"],
+               tp2_rank=te["kernels"]["k1"],
                fused_self_attention=k["fused_self_attention"],
                fused_self_attention_bucket_W64=sc["k3"]["W64"],
                fused_self_attention_bucket_W160=sc["k3"]["W160"],
@@ -3977,7 +4469,8 @@ def main() -> int:
         _entry("t5_attention_core_bwd_k2b", "t5_attention_bwd.cu",
                "ops/flash.py:614", total["core_bwd_k2b"],
                k["core_bwd"]["k2b_train512"],
-               dk128=k["core_bwd"]["k2b_dk128"]),
+               dk128=k["core_bwd"]["k2b_dk128"],
+               tp2_rank=te["kernels"]["k2b"]),
         _entry("t5_attention_core_bwd_k2a", "t5_attention_bwd_fp32.cu",
                "ops/flash.py:353", total["core_bwd_k2a"],
                k["core_bwd"]["k2a_L768"],
@@ -4119,6 +4612,17 @@ def main() -> int:
                             {case: pa["nccl_world2"][case]["loss_rel_err"]
                              for case in ("dp2",)}),
             "seconds": pa["seconds"]},
+        "tensor": {
+            **{case: {key: te["ranks"][case][key] for key in (
+                "loss_rel_err", "grad_rel_l2_max", "grad_rel_l2_median",
+                "loss2_rel_err", "peak_mib_per_rank", "step_s_per_rank",
+                "peak_mib_one_process", "step_s_one_process")
+                if key in te["ranks"][case]}
+               for case in ("tp2", "online_dp2_tp2")},
+            "nccl_world2": (te["nccl_world2"]
+                            if isinstance(te["nccl_world2"], str) else
+                            te["nccl_world2"]["tp2"]["loss_rel_err"]),
+            "seconds": te["seconds"]},
         "seconds": time.perf_counter() - t_start,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -25,6 +25,7 @@ from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models.monot5 import relevance_log_probs
 from pacednegatives_tpu_torch.ops.losses import margin_mse, token_ce
 from pacednegatives_tpu_torch.optim import apply_updates, tree_leaves
+from pacednegatives_tpu_torch.parallel.mesh import refuse_tensor_parallel
 
 
 class DistillState(NamedTuple):
@@ -50,8 +51,10 @@ def make_distill_step(
     if objective not in ("margin_mse", "ce"):
         raise ValueError(
             f"objective must be 'margin_mse' or 'ce', got {objective!r}")
+    refuse_tensor_parallel("make_distill_step")
 
     def step(state: DistillState, batch) -> tuple[DistillState, dict]:
+        refuse_tensor_parallel("make_distill_step")
         device = tree_leaves(state.params)[0].device
         b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         flat = {k: v.detach().requires_grad_(True)

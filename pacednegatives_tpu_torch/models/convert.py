@@ -24,7 +24,12 @@ continue in the port, and tests can start both packages from one state.
 ``DistillState`` (params, optimizer state, step).
 
 Nothing here imports JAX: trees come in as numpy arrays (for example
-``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side).
+``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side). Under
+tensor parallelism a converted state goes to a rank through
+``train.state.shard_train_state`` (the optimizer's moments, factored rows
+and columns included, split with their leaf), and
+``train.state.gather_train_state`` gives back the one whole tree that
+compares with JAX's.
 """
 
 from __future__ import annotations

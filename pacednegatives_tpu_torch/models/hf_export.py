@@ -148,7 +148,10 @@ def write_safetensors(tensors: dict[str, torch.Tensor], path: str) -> None:
 def save_pretrained(params: Any, cfg: T5Config, path: str) -> None:
     """Write a transformers-loadable T5ForConditionalGeneration directory:
     ``config.json`` and ``model.safetensors`` (aliases of a tied embedding
-    dropped, as transformers drops them)."""
+    dropped, as transformers drops them). It takes whole leaves: under a
+    tensor-parallel mesh the caller gathers them first (``gather_params``
+    or ``gather_train_state``, a collective on every rank) and calls this
+    on rank 0 only."""
     sd = state_dict_from_params(params, cfg)
     if cfg.tie_word_embeddings:
         for alias in ("lm_head.weight", "encoder.embed_tokens.weight",

@@ -9,32 +9,48 @@ from __future__ import annotations
 import torch
 
 from pacednegatives_tpu_torch.models import t5
+from pacednegatives_tpu_torch.parallel.collectives import reduce_from_model
+from pacednegatives_tpu_torch.parallel.mesh import model_split
 
 # t5 sentencepiece: tokenizer.encode('true')[0] == 1176, 'false' -> 6136.
 VERBALIZER_TRUE = 1176
 VERBALIZER_FALSE = 6136
 
 
-def _pair(first_token_logits: torch.Tensor, rel_id: int,
-          nrel_id: int) -> torch.Tensor:
-    # columns [rel_id, nrel_id] of the full logits (monot5.py:31)
-    return first_token_logits[:, [rel_id, nrel_id]]
+def _pair(first_token_logits: torch.Tensor, rel_id: int, nrel_id: int,
+          vocab_size: int | None = None) -> torch.Tensor:
+    """Columns [rel_id, nrel_id] of the full logits (monot5.py:31). With
+    ``vocab_size`` and narrower logits (a tensor-parallel rank's vocab
+    columns), each column comes from the rank that owns it: the others
+    put 0 there, and the pair is summed over the model group."""
+    if vocab_size is None or first_token_logits.shape[-1] == vocab_size:
+        return first_token_logits[:, [rel_id, nrel_id]]
+    width = first_token_logits.shape[-1]
+    mesh = model_split(width, vocab_size)
+    cols = (torch.tensor([rel_id, nrel_id], device=first_token_logits.device)
+            - mesh.model_rank * width)
+    inside = (cols >= 0) & (cols < width)
+    pair = first_token_logits[:, cols.clamp(0, width - 1)]
+    return reduce_from_model(torch.where(inside, pair, 0.0), mesh)
 
 
 def relevance_log_probs(first_token_logits: torch.Tensor,
                         rel_id: int = VERBALIZER_TRUE,
-                        nrel_id: int = VERBALIZER_FALSE) -> torch.Tensor:
-    """(B, vocab) first-position logits -> (B,) log P(true | {true,false})."""
-    return torch.log_softmax(_pair(first_token_logits, rel_id, nrel_id),
-                             dim=-1)[:, 0]
+                        nrel_id: int = VERBALIZER_FALSE,
+                        vocab_size: int | None = None) -> torch.Tensor:
+    """(B, vocab) first-position logits -> (B,) log P(true | {true,false})
+    (``vocab_size``: see ``_pair``)."""
+    return torch.log_softmax(_pair(first_token_logits, rel_id, nrel_id,
+                                   vocab_size), dim=-1)[:, 0]
 
 
 def relevance_probs(first_token_logits: torch.Tensor,
                     rel_id: int = VERBALIZER_TRUE,
-                    nrel_id: int = VERBALIZER_FALSE) -> torch.Tensor:
-    """(B,) P(true)."""
-    return torch.softmax(_pair(first_token_logits, rel_id, nrel_id),
-                         dim=-1)[:, 0]
+                    nrel_id: int = VERBALIZER_FALSE,
+                    vocab_size: int | None = None) -> torch.Tensor:
+    """(B,) P(true) (``vocab_size``: see ``_pair``)."""
+    return torch.softmax(_pair(first_token_logits, rel_id, nrel_id,
+                               vocab_size), dim=-1)[:, 0]
 
 
 def score_batch(params: dict, cfg: t5.T5Config, input_ids: torch.Tensor,
@@ -50,4 +66,5 @@ def score_batch(params: dict, cfg: t5.T5Config, input_ids: torch.Tensor,
     dec_in = torch.full((B, 1), cfg.decoder_start_token_id, dtype=torch.long,
                         device=input_ids.device)
     logits = t5.decode(params, cfg, dec_in, enc, attention_mask)
-    return relevance_log_probs(logits[:, 0, :], rel_id, nrel_id)
+    return relevance_log_probs(logits[:, 0, :], rel_id, nrel_id,
+                               cfg.vocab_size)

@@ -23,6 +23,16 @@ The decoder runs one step (monoT5 scores the first decode position), where
 self-attention over a single position is the value projection followed by
 the output projection, and the LM head needs only the two verbalizer rows
 of the (tied) embedding. Nothing here is used for training.
+
+Under tensor parallelism (a rank's slices of the weights, parallel/mesh.py)
+the forward runs split as models/t5.py's does: q/k/v and wi* on the rank's
+heads and d_ff columns, their scales per output channel as they are; o and
+wo on the rank's input rows, where a per-output-channel weight scale and a
+per-token activation scale are maxima over a split axis, so both are
+reduced (max) over the model group, and the ranks' exact int32 partial
+products are summed over it before the one dequantisation (GSPMD sums the
+int32 product of a split contraction the same way). The embedding rows
+and the two verbalizer rows come from the ranks that own them.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from pacednegatives_tpu_torch.models.monot5 import (
     VERBALIZER_FALSE,
     VERBALIZER_TRUE,
 )
+from pacednegatives_tpu_torch.parallel.collectives import model_max, model_sum
+from pacednegatives_tpu_torch.parallel.mesh import model_split
 
 _EPS = 1e-8
 # torch._int_mm on CUDA (cuBLASLt) takes more than 16 rows, a multiple of
@@ -43,28 +55,41 @@ _EPS = 1e-8
 _INT_MM_MIN_ROWS, _INT_MM_ROW_MULTIPLE = 32, 8
 
 
-def _quantize_weight(w: torch.Tensor) -> dict:
+def _quantize_weight(w: torch.Tensor, mesh=None) -> dict:
     """(d, o) float weight -> int8 + per-output-channel fp32 scale. The
     codes are stored K-major (a (d, o) view of an (o, d) tensor), the
     layout cuBLASLt's int8 tensor-core products take; a column slice of
-    it (a fused layout's q, k or v) stays K-major without a copy."""
+    it (a fused layout's q, k or v) stays K-major without a copy. With a
+    ``mesh`` the rank holds a slice of the input rows (row-parallel), and
+    each channel's max is the model group's."""
     w = w.float()
-    s = torch.clamp_min(w.abs().amax(dim=0, keepdim=True), _EPS) / 127.0
+    amax = w.abs().amax(dim=0, keepdim=True)
+    if mesh is not None:
+        amax = model_max(amax, mesh)
+    s = torch.clamp_min(amax, _EPS) / 127.0
     q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"w": q.t().contiguous().t(), "s": s}
 
 
-def _quantize_tokens(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., d) float -> int8 codes and per-token fp32 scales (..., 1)."""
+def _quantize_tokens(x: torch.Tensor,
+                     mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., d) float -> int8 codes and per-token fp32 scales (..., 1);
+    with a ``mesh`` x holds a slice of the features, and each token's max
+    is the model group's."""
     xf = x.float()
-    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), _EPS) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if mesh is not None:
+        amax = model_max(amax, mesh)
+    sx = torch.clamp_min(amax, _EPS) / 127.0
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
 
 
 def _int8_matmul(xq: torch.Tensor, sx: torch.Tensor, qw: dict,
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 out_dtype: torch.dtype, mesh=None) -> torch.Tensor:
     """int8 codes (..., d) with their per-token scales, times an int8
-    weight: the exact int32 product, dequantized as ``(acc * sx) * sw``."""
+    weight: the exact int32 product, dequantized as ``(acc * sx) * sw``;
+    with a ``mesh`` (a row-parallel slice) the int32 partial products are
+    summed over the model group first."""
     rows = xq.reshape(-1, xq.shape[-1])
     m = rows.shape[0]
     padded = max(_INT_MM_MIN_ROWS, -(-m // _INT_MM_ROW_MULTIPLE)
@@ -72,33 +97,46 @@ def _int8_matmul(xq: torch.Tensor, sx: torch.Tensor, qw: dict,
     if padded != m:
         rows = F.pad(rows, (0, 0, 0, padded - m))
     acc = torch._int_mm(rows.contiguous(), qw["w"])[:m]
+    if mesh is not None:
+        acc = model_sum(acc, mesh)
     acc = acc.reshape(*xq.shape[:-1], acc.shape[-1])
     # int32 * fp32 converts in the kernel: (float(acc) * sx) * sw
     return (acc * sx * qw["s"]).to(out_dtype)
 
 
 def int8_linear(x: torch.Tensor, qw: dict,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                mesh=None) -> torch.Tensor:
     """Dynamic per-token activation quant + int8 x int8 -> int32 product.
 
     x (..., d) any float; qw from ``_quantize_weight``. The int32
     accumulator is exact; the only rounding is the two int8 quantizations
     (plus the out_dtype cast; the scale multiply is fp32 either way).
+    ``mesh``: x and qw are a row-parallel layer's slices (module
+    docstring).
     """
-    return _int8_matmul(*_quantize_tokens(x), qw, out_dtype)
+    return _int8_matmul(*_quantize_tokens(x, mesh), qw, out_dtype, mesh)
 
 
-def _quantize_attn(p: dict) -> dict:
+def _row_split(qw: dict, full: int):
+    """The mesh of a row-parallel slice of ``full`` input rows, or None."""
+    return model_split(qw["w"].shape[0], full)
+
+
+def _quantize_attn(p: dict, cfg: t5.T5Config) -> dict:
     # three layouts (t5.fuse_attention_params): separate q/k/v, fused
     # self-attn "qkv", fused cross-attn q + "kv"
     src = {k: p[k] for k in ("q", "k", "v", "qkv", "kv") if k in p}
     out = {k: _quantize_weight(v) for k, v in src.items()}
-    out["o"] = _quantize_weight(p["o"])
+    out["o"] = _quantize_weight(
+        p["o"], model_split(p["o"].shape[0], cfg.num_heads * cfg.d_kv))
     return out
 
 
-def _quantize_mlp(p: dict) -> dict:
-    return {k: _quantize_weight(v) for k, v in p.items()}
+def _quantize_mlp(p: dict, cfg: t5.T5Config) -> dict:
+    return {k: _quantize_weight(
+        v, model_split(v.shape[0], cfg.d_ff) if k == "wo" else None)
+        for k, v in p.items()}
 
 
 def quantize_scoring_params(params: dict, cfg: t5.T5Config) -> dict:
@@ -112,17 +150,17 @@ def quantize_scoring_params(params: dict, cfg: t5.T5Config) -> dict:
 
     def enc_block(b):
         return {
-            "self_attn": _quantize_attn(b["self_attn"]),
-            "mlp": _quantize_mlp(b["mlp"]),
+            "self_attn": _quantize_attn(b["self_attn"], cfg),
+            "mlp": _quantize_mlp(b["mlp"], cfg),
             "ln_self": b["ln_self"],
             "ln_mlp": b["ln_mlp"],
         }
 
     def dec_block(b):
         return {
-            "self_attn": _quantize_attn(b["self_attn"]),
-            "cross_attn": _quantize_attn(b["cross_attn"]),
-            "mlp": _quantize_mlp(b["mlp"]),
+            "self_attn": _quantize_attn(b["self_attn"], cfg),
+            "cross_attn": _quantize_attn(b["cross_attn"], cfg),
+            "mlp": _quantize_mlp(b["mlp"], cfg),
             "ln_self": b["ln_self"],
             "ln_cross": b["ln_cross"],
             "ln_mlp": b["ln_mlp"],
@@ -194,13 +232,16 @@ def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
 def _attention_int8(qp, x_q, x_kv, bias, cfg: t5.T5Config, sd=torch.float32,
                     kv_codes: dict | None = None):
     """T5 attention (unscaled scores + additive bias) with int8
-    projections; the score / AV products on bf16 operands."""
-    H, dk = cfg.num_heads, cfg.d_kv
+    projections; the score / AV products on bf16 operands. A rank's
+    heads only, with its slice of o, under tensor parallelism."""
+    dk = cfg.d_kv
+    H = qp["o"]["w"].shape[0] // dk
     q, k, v = _proj_qkv(qp, x_q, x_kv, H, dk, sd, kv_codes)
     s = torch.einsum("bqhd,bkhd->bhqk", _bf16_operand(q), _bf16_operand(k))
     p = torch.softmax(s + bias, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", _bf16_operand(p), _bf16_operand(v))
-    return int8_linear(o.reshape(o.shape[0], o.shape[1], H * dk), qp["o"], sd)
+    return int8_linear(o.reshape(o.shape[0], o.shape[1], H * dk), qp["o"], sd,
+                       _row_split(qp["o"], cfg.num_heads * dk))
 
 
 def _mlp_int8(qp, cfg: t5.T5Config, x, sd=torch.float32):
@@ -210,7 +251,7 @@ def _mlp_int8(qp, cfg: t5.T5Config, x, sd=torch.float32):
             * _int8_matmul(*cx, qp["wi_1"], sd)
     else:
         h = torch.relu(int8_linear(x, qp["wi"], sd))
-    return int8_linear(h, qp["wo"], sd)
+    return int8_linear(h, qp["wo"], sd, _row_split(qp["wo"], cfg.d_ff))
 
 
 def score_batch_int8(
@@ -238,7 +279,7 @@ def score_batch_int8(
     dev = input_ids.device
 
     emb = qparams["shared"]["embedding"].float()
-    x = emb[input_ids.long()].to(sd)
+    x = t5.embed_tokens(emb, input_ids, cfg).to(sd)
 
     pos = t5.compute_position_bias(
         qparams["enc_rel_bias"], L, L, True,
@@ -257,7 +298,7 @@ def score_batch_int8(
     # --- one decoder step at position 0 -----------------------------------
     start = torch.full((B, 1), cfg.decoder_start_token_id, dtype=torch.long,
                        device=dev)
-    d = emb[start].to(sd)
+    d = t5.embed_tokens(emb, start, cfg).to(sd)
     cross_bias = t5._padding_bias(attention_mask)
     enc_codes: dict = {}  # enc_h quantized once, at its first use
     for blk in qparams["dec_blocks"]:
@@ -265,12 +306,13 @@ def score_batch_int8(
         # regardless of bias, so attn(x) == o_proj(v_proj(x)) exactly
         h = t5.rms_norm(d, blk["ln_self"]["scale"], eps, sd)
         sa = blk["self_attn"]
+        inner = sa["o"]["w"].shape[0]  # a rank's heads' under a split
         if "qkv" in sa:
-            inner = cfg.num_heads * cfg.d_kv
             v = int8_linear(h, _cols(sa["qkv"], 2 * inner, 3 * inner), sd)
         else:
             v = int8_linear(h, sa["v"], sd)
-        d = d + int8_linear(v, sa["o"], sd)
+        d = d + int8_linear(v, sa["o"], sd,
+                            _row_split(sa["o"], cfg.num_heads * cfg.d_kv))
         h = t5.rms_norm(d, blk["ln_cross"]["scale"], eps, sd)
         d = d + _attention_int8(blk["cross_attn"], h, enc_h, cross_bias, cfg,
                                 sd, enc_codes)
@@ -282,9 +324,10 @@ def score_batch_int8(
     # only, so the full (V, D) product is never needed; exact fp32
     rows = torch.tensor([rel_id, nrel_id], device=dev)
     if cfg.tie_word_embeddings:
-        head = emb[rows]  # (2, D)
+        head = t5.embed_tokens(emb, rows, cfg)  # (2, D)
         d = d * (cfg.d_model**-0.5)
     else:
-        head = qparams["lm_head"]["embedding"].float()[rows]
+        head = t5.embed_tokens(qparams["lm_head"]["embedding"].float(), rows,
+                               cfg)
     pair = torch.einsum("bld,vd->blv", d, head)[:, 0, :]
     return torch.log_softmax(pair, dim=-1)[:, 0]

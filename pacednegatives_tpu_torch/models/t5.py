@@ -36,6 +36,19 @@ kernel paths, through the kernels' dpos. The train step computes the
 biases once per step (``position_bias_from_tables``), passes them in
 through ``pos_biases`` and folds their accumulated cotangent back into the
 tables, as the JAX step does (train/step.py:165-178, 301-305).
+
+Tensor parallelism (a mesh with ``model > 1``, parallel/mesh.py): a rank
+may hold its slice of a split weight (``shard_params``), and each layer
+reads from its weights' shapes whether it runs split (``model_split``):
+attention on ``H / model`` whole heads (q/k/v column-parallel, o
+row-parallel, the rank's rel_bias columns), the FFN on ``d_ff / model``
+(wi* column-, wo row-parallel), the embedding lookup over the rank's vocab
+rows (masked, then summed over the model group) and the LM head giving
+the rank's vocab columns of the logits. Each split layer is entered
+through ``copy_to_model`` and left through ``reduce_from_model``
+(parallel/collectives.py); whole weights run as one process runs them,
+with no collective. The chunked kernel route picks its backward kernel on
+the global head count, as one process does.
 """
 
 from __future__ import annotations
@@ -64,7 +77,11 @@ from pacednegatives_tpu_torch.ops.flash_v3 import (
     flash_v3_eligible,
     fused_self_attention,
 )
-from pacednegatives_tpu_torch.parallel.mesh import current_mesh
+from pacednegatives_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    reduce_from_model,
+)
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh, model_split
 
 NEG_INF = -1e9  # additive mask value, applied in fp32 (t5.py:33)
 
@@ -429,17 +446,24 @@ def _dropout_seeds(seed: int | None, n: int) -> list:
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: int | None,
-             deterministic: bool) -> torch.Tensor:
+             deterministic: bool, heads: tuple | None = None) -> torch.Tensor:
     """t5.py:325-329: keep each element with probability 1 - rate and scale
     it by 1 / (1 - rate), in x's dtype; x itself at rate 0. The mask comes
     from a generator seeded with ``seed`` on x's device, so a recomputed
-    block draws the same mask as its forward."""
+    block draws the same mask as its forward. ``heads`` = (H, first): x
+    holds heads first .. first + x.shape[1] - 1 of H (a tensor-parallel
+    rank's), and its mask is those heads' of the H-head mask one process
+    draws."""
     if deterministic or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("deterministic=False needs a dropout seed")
     g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    shape = x.shape if heads is None else (x.shape[0], heads[0],
+                                           *x.shape[2:])
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - rate
+    if heads is not None:
+        keep = keep[:, heads[1]:heads[1] + x.shape[1]]
     # JAX divides by the weak-typed 1 - rate, which takes x's dtype
     scale = float(torch.tensor(1.0 - rate, dtype=x.dtype))
     return torch.where(keep, x / scale, 0.0).to(x.dtype)
@@ -472,6 +496,10 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     Lk = kv.shape[1]
     H, dk = cfg.num_heads, cfg.d_kv
     dt = cfg.dtype
+    # this rank's heads: all H, or H / model of a split layer
+    w_in = p["qkv"].shape[-1] // 3 if "qkv" in p else p["q"].shape[-1]
+    H_l = w_in // dk
+    tp = model_split(H_l, H)
 
     # flash_v3 routing, as t5.py:400-533: deterministic (the stacks refuse
     # flash_v3 with dropout), self-attention (x is kv), a lazy tuple bias,
@@ -515,8 +543,13 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
                 stacklevel=2,
             )
 
-    def heads(t, L):  # (B, L, H*dk) -> (B, H, L, dk)
-        return t.view(B, L, H, dk).transpose(1, 2)
+    if tp is not None:
+        self_attn = x is kv
+        x = copy_to_model(x, tp)
+        kv = x if self_attn else copy_to_model(kv, tp)
+
+    def heads(t, L):  # (B, L, H_l*dk) -> (B, H_l, L, dk)
+        return t.view(B, L, H_l, dk).transpose(1, 2)
 
     if "qkv" in p:
         q, k, v = (heads(t, Lq) for t in
@@ -541,11 +574,14 @@ def attention(p: dict, cfg: T5Config, x: torch.Tensor, kv: torch.Tensor,
     else:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores + _combine_bias(bias)
+        # a split layer's mask: its heads' of the H-head mask
+        heads_of = () if tp is None else ((H, tp.model_rank * H_l),)
         weights = _dropout(torch.softmax(scores, dim=-1).to(dt),
-                           cfg.dropout_rate, dropout_seed, deterministic)
-        out = torch.matmul(weights, v)  # (B, H, Lq, dk)
-    return torch.matmul(out.transpose(1, 2).reshape(B, Lq, H * dk),
-                        p["o"].to(dt))
+                           cfg.dropout_rate, dropout_seed, deterministic,
+                           *heads_of)
+        out = torch.matmul(weights, v)  # (B, H_l, Lq, dk)
+    return reduce_from_model(torch.matmul(
+        out.transpose(1, 2).reshape(B, Lq, H_l * dk), p["o"].to(dt)), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -589,8 +625,10 @@ def _chunked_attention(cfg: T5Config, q, k, v, bias) -> torch.Tensor:
             f"attn_residual_dtype must be 'fp32' or 'bf16', "
             f"got {cfg.attn_residual_dtype!r}"
         )
+    # the backward kernel is chosen on the model's head count, so that a
+    # tensor-parallel rank runs the kernel (and numerics) one process runs
     out = flash_core(C, impl, cfg.attn_residual_dtype, q, k, v, shared,
-                     per_batch)
+                     per_batch, route_heads=cfg.num_heads)
     return out.to(cfg.dtype)
 
 
@@ -731,18 +769,26 @@ def _pallas_forward(q, k, v, shared, per_batch):
     return out, (m, l, out)
 
 
-def _pallas_backward(res, g, need_shared):
+def backward_route(route_heads: int, Lq: int, Lk: int, dk: int) -> str:
+    """"k2b" or "k2a": the kernel route's backward for a model of
+    ``route_heads`` heads (``flash_v2_eligible`` on the whole model's H,
+    whatever share of the heads a rank holds)."""
+    return "k2b" if flash_v2_eligible(route_heads, Lq, Lk, dk) else "k2a"
+
+
+def _pallas_backward(res, g, need_shared, route_heads=None):
     """The kernel route's backward (t5.py:946-988): K2b where
-    ``flash_v2_eligible``, else K2a. The per-batch key mask gets no
-    gradient: it comes from integer attention masks and never requires
-    one."""
+    ``flash_v2_eligible`` on ``route_heads`` (default: q's heads), else
+    K2a. The per-batch key mask gets no gradient: it comes from integer
+    attention masks and never requires one."""
     q, k, v, shared, per_batch, m, l, out_res = res
     B, H, Lq, dk = q.shape
     Lk = k.shape[2]
     pos3, key_mask = _kernel_biases(shared, per_batch, B, H, Lq, Lk)
     g32 = g.float().contiguous()
     D = (g32 * out_res.float()).sum(dim=-1)  # (B, H, Lq)
-    bwd = (flash_attention_backward_v2 if flash_v2_eligible(H, Lq, Lk, dk)
+    bwd = (flash_attention_backward_v2
+           if backward_route(route_heads or H, Lq, Lk, dk) == "k2b"
            else flash_attention_backward)
     dq, dk_, dv, dpos = bwd(q, k, v, pos3, key_mask, m, l, D, g32)
     dshared = None
@@ -758,10 +804,12 @@ class _FlashCore(torch.autograd.Function):
     backward). Saves (q, k, v, biases, m, l, out), with out in
     ``res_dtype``; returns out (B, H, Lq, dk) fp32. The plain route is
     twice differentiable; the kernel route's backward raises under
-    ``create_graph=True``."""
+    ``create_graph=True``. ``route_heads`` picks the kernel route's
+    backward (``backward_route``)."""
 
     @staticmethod
-    def forward(ctx, C, impl, res_dtype, q, k, v, shared, per_batch):
+    def forward(ctx, C, impl, res_dtype, q, k, v, shared, per_batch,
+                route_heads=None):
         if impl == "kernel":
             out, (m, l, _) = _pallas_forward(q, k, v, shared, per_batch)
         else:
@@ -769,7 +817,7 @@ class _FlashCore(torch.autograd.Function):
         # the residual feeds only delta = sum(g * out); (m, l) stay fp32
         res = out.to(torch.bfloat16) if res_dtype == "bf16" else out
         ctx.save_for_backward(q, k, v, shared, per_batch, m, l, res)
-        ctx.C, ctx.impl = C, impl
+        ctx.C, ctx.impl, ctx.route_heads = C, impl, route_heads
         return out
 
     @staticmethod
@@ -786,20 +834,21 @@ class _FlashCore(torch.autograd.Function):
         res = ctx.saved_tensors
         need_shared, need_per_batch = ctx.needs_input_grad[6:8]
         if ctx.impl == "kernel":
-            grads = _pallas_backward(res, g, need_shared)
+            grads = _pallas_backward(res, g, need_shared, ctx.route_heads)
         else:
             grads = _flash_backward(ctx.C, res, g, need_shared,
                                     need_per_batch)
-        return (None, None, None, *grads)
+        return (None, None, None, *grads, None)
 
 
 def flash_core(C: int, impl: str, res_dtype: str, q, k, v, shared,
-               per_batch) -> torch.Tensor:
+               per_batch, route_heads: int | None = None) -> torch.Tensor:
     """``_FlashCore`` as a function: out (B, H, Lq, dk) fp32 of q/k/v
     (B, H, L, dk) with keys a multiple of C long and the additive biases
     ``shared`` and ``per_batch`` (4-D, broadcastable; (1, 1, 1, 1) zeros
     for none)."""
-    return _FlashCore.apply(C, impl, res_dtype, q, k, v, shared, per_batch)
+    return _FlashCore.apply(C, impl, res_dtype, q, k, v, shared, per_batch,
+                            route_heads)
 
 
 class _ReluFFN(torch.autograd.Function):
@@ -829,17 +878,38 @@ class _ReluFFN(torch.autograd.Function):
 
 
 def mlp(p: dict, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
+    """The FFN; split over the model group when this rank holds d_ff /
+    model of it (wi* column-parallel, wo row-parallel)."""
     dt = cfg.dtype
+    tp = model_split(p["wo"].shape[0], cfg.d_ff)
+    x = copy_to_model(x, tp)
     if cfg.gated_ffn:
         # tanh GELU == HF NewGELUActivation, as jax.nn.gelu(approximate=True)
         h = torch.nn.functional.gelu(
             torch.matmul(x, p["wi_0"].to(dt)), approximate="tanh"
         ) * torch.matmul(x, p["wi_1"].to(dt))
     elif cfg.ffn_custom_vjp:
-        return _ReluFFN.apply(x, p["wi"].to(dt), p["wo"].to(dt))
+        return reduce_from_model(
+            _ReluFFN.apply(x, p["wi"].to(dt), p["wo"].to(dt)), tp)
     else:
         h = torch.relu(torch.matmul(x, p["wi"].to(dt)))
-    return torch.matmul(h, p["wo"].to(dt))
+    return reduce_from_model(torch.matmul(h, p["wo"].to(dt)), tp)
+
+
+def embed_tokens(table: torch.Tensor, ids: torch.Tensor,
+                 cfg: T5Config) -> torch.Tensor:
+    """``table[ids]``: the rows of a (vocab, D) embedding table. A rank
+    holding vocab / model rows of it looks up the ids in its range, zeroes
+    the others' rows and sums over the model group (one nonzero term: the
+    exact row); the gradient reaches only its own rows."""
+    tp = model_split(table.shape[0], cfg.vocab_size)
+    if tp is None:
+        return table[ids.long()]
+    local = ids.long() - tp.model_rank * table.shape[0]
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    return reduce_from_model(torch.where(inside[..., None], rows, zero), tp)
 
 
 def _rel_bias(stack: dict) -> torch.Tensor:
@@ -961,7 +1031,8 @@ def encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
     # one seed per dropout site: three a block (attention weights, the
     # attention residual, the FFN residual), the final norm, the embedding
     seeds = _dropout_seeds(dropout_seed, 3 * n_blocks + 2)
-    x = _dropout(params["shared"]["embedding"].to(dt)[input_ids.long()],
+    x = _dropout(embed_tokens(params["shared"]["embedding"].to(dt),
+                              input_ids, cfg),
                  cfg.dropout_rate, seeds[-1], deterministic)
     if pos_bias is None:
         pos_bias = compute_position_bias(
@@ -995,7 +1066,8 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
            encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor, *,
            deterministic: bool = True, dropout_seed: int | None = None,
            self_pos_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Decoder stack with teacher forcing -> (B, Lt, vocab) fp32 logits.
+    """Decoder stack with teacher forcing -> (B, Lt, vocab) fp32 logits
+    (a tensor-parallel rank's: (B, Lt, vocab / model), its vocab columns).
     With ``deterministic=False``, dropout with masks from
     ``dropout_seed``."""
     _check_training_knobs(cfg, deterministic)
@@ -1008,8 +1080,8 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
     # cross-attention weights and residual, the FFN residual), the final
     # norm, the embedding
     seeds = _dropout_seeds(dropout_seed, 5 * n_blocks + 2)
-    x = _dropout(emb[decoder_input_ids.long()], cfg.dropout_rate, seeds[-1],
-                 deterministic)
+    x = _dropout(embed_tokens(emb, decoder_input_ids, cfg),
+                 cfg.dropout_rate, seeds[-1], deterministic)
     if self_pos_bias is None:
         self_pos_bias = compute_position_bias(
             _rel_bias(dec), Lt, Lt, False,
@@ -1041,13 +1113,16 @@ def decode(params: dict, cfg: T5Config, decoder_input_ids: torch.Tensor,
                        encoder_hidden, *seeds[5 * i:5 * i + 5])
     x = drop(rms_norm(x, dec["final_ln"]["scale"], eps, dt), seeds[-2])
     # fp32-accumulated LM head (t5.py:1553-1565); the full-vocab product is
-    # a plain matmul outside any kernel
+    # a plain matmul outside any kernel. A rank holding vocab / model rows
+    # of the head gives those columns; the fp32 input's gradient is summed
+    # over the model group in fp32, then cast once
     if cfg.tie_word_embeddings:
         x = x * (cfg.d_model**-0.5)
         head = emb
     else:
         head = params["lm_head"]["embedding"].to(dt)
-    return torch.matmul(x.float(), head.float().t())
+    tp = model_split(head.shape[0], cfg.vocab_size)
+    return torch.matmul(copy_to_model(x.float(), tp), head.float().t())
 
 
 def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:

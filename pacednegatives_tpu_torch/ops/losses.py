@@ -11,17 +11,47 @@ from __future__ import annotations
 
 import torch
 
+from pacednegatives_tpu_torch.parallel.collectives import (
+    model_max,
+    reduce_from_model,
+)
+from pacednegatives_tpu_torch.parallel.mesh import model_split
+
 IGNORE_INDEX = -100
 
 
 def token_ce_per_token(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
-    """(B, L, V) logits, (B, L) labels -> (B, L) CE, ignored positions 0."""
+                       ignore_index: int = IGNORE_INDEX,
+                       vocab_size: int | None = None) -> torch.Tensor:
+    """(B, L, V) logits, (B, L) labels -> (B, L) CE, ignored positions 0.
+
+    With ``vocab_size`` and logits narrower than it, the logits are a
+    tensor-parallel rank's vocab columns (models/t5.decode): the max, the
+    sum of exponentials and the target logit are each reduced over the
+    model group, so every rank gets the whole CE, and the gradient flows
+    back only into the rank's own columns."""
+    if vocab_size is not None and logits.shape[-1] != vocab_size:
+        return _vocab_parallel_ce(logits, labels, ignore_index, vocab_size)
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     tok = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return torch.where(valid, tok, 0.0)
+
+
+def _vocab_parallel_ce(logits, labels, ignore_index, vocab_size):
+    mesh = model_split(logits.shape[-1], vocab_size)
+    x = logits.float()
+    width = x.shape[-1]
+    m = model_max(x.detach().amax(dim=-1), mesh)  # a constant shift
+    sum_exp = reduce_from_model(torch.exp(x - m[..., None]).sum(dim=-1), mesh)
+    valid = labels != ignore_index
+    local = labels.long() - mesh.model_rank * width
+    inside = valid & (local >= 0) & (local < width)
+    picked = torch.gather(x, -1, torch.where(inside, local, 0)[..., None])
+    shifted = reduce_from_model(
+        torch.where(inside, picked[..., 0] - m, 0.0), mesh)  # x_t - m
+    return torch.where(valid, -(shifted - torch.log(sum_exp)), 0.0)
 
 
 def token_ce(logits: torch.Tensor, labels: torch.Tensor,

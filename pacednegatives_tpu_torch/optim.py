@@ -27,6 +27,14 @@ and column EMAs of g^2 for leaves of two or more dims. ``MultiSteps`` is
 inner optimizer applied to it on the k-th, zero updates on the others.
 
 The update stays on the device and syncs nothing with the host.
+
+Under tensor parallelism (parallel/mesh.py) each rank holds its slices of
+the split leaves and ``update`` takes ``model_dims``, the split dim of
+each leaf (None for a whole one): the clip's global norm counts every
+logical element once (a split leaf's squared norm summed over the model
+group, a whole leaf's counted once), and the factored moments' means over
+a split axis are taken over the model group. Everything else is
+elementwise and runs on the slices as it is.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import numpy as np
 import torch
 
 from pacednegatives_tpu_torch.models.t5 import tree_map
+from pacednegatives_tpu_torch.parallel.collectives import model_sum
+from pacednegatives_tpu_torch.parallel.mesh import current_mesh
 
 
 def tree_leaves(tree) -> list:
@@ -64,11 +74,30 @@ def _zeros(p: torch.Tensor, dtype=torch.float32, shape=None) -> torch.Tensor:
                        device=p.device)
 
 
-def _clip(g: list, clip_norm: float | None) -> list:
-    """optax.clip_by_global_norm on a list of leaves."""
+def _split_leaves(model_dims, n: int) -> list:
+    """Each leaf's split dim (``tree_leaves`` order), None for all-whole
+    or without a model group."""
+    mesh = current_mesh()
+    if model_dims is None or mesh is None or mesh.model == 1:
+        return [None] * n
+    return tree_leaves(model_dims)
+
+
+def _clip(g: list, clip_norm: float | None, split: list) -> list:
+    """optax.clip_by_global_norm on a list of leaves; ``split`` (each
+    leaf's split dim or None) sums the split leaves' squares over the
+    model group."""
     if clip_norm is None:
         return g
-    g_norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+    sq = torch.stack(torch._foreach_norm(g)).square()
+    if any(d is not None for d in split):
+        is_split = torch.tensor([d is not None for d in split],
+                                device=sq.device)
+        g_norm = (model_sum(torch.where(is_split, sq, 0.0).sum(),
+                            current_mesh())
+                  + torch.where(is_split, 0.0, sq).sum()).sqrt()
+    else:
+        g_norm = sq.sum().sqrt()
     # (g / g_norm) * max_norm only when g_norm >= max_norm; scaling by
     # max_norm / g_norm rounds once where optax rounds twice
     scale = torch.where(g_norm < clip_norm, torch.ones_like(g_norm),
@@ -104,14 +133,16 @@ class Adam:
                                      params),
                          nu=tree_map(_zeros, params))
 
-    def update(self, grads, state: AdamState, params):
+    def update(self, grads, state: AdamState, params, model_dims=None):
         """-> (updates, new state), as ``tx.update(grads, state, params)``.
 
         Each step is one multi-tensor (``torch._foreach_*``) op over every
         leaf, with the same per-element arithmetic as a per-leaf loop; the
         constants are Python floats, which PyTorch applies in fp32 to fp32
-        tensors as JAX applies weak-typed constants."""
-        g = _clip(tree_leaves(grads), self.clip_norm)
+        tensors as JAX applies weak-typed constants. ``model_dims``: see
+        the module docstring."""
+        g = tree_leaves(grads)
+        g = _clip(g, self.clip_norm, _split_leaves(model_dims, len(g)))
         mu = torch._foreach_mul(g, 1 - self.b1)
         mu_prev = tree_leaves(state.mu)
         b1 = self.b1
@@ -179,29 +210,44 @@ class FactoredAdam:
             count=0, mu=tree_map(lambda p: _zeros(p, torch.bfloat16), params),
             nu_row=tree_map(row, params), nu_col=tree_map(col, params))
 
-    def update(self, grads, state: FactoredAdamState, params):
+    def update(self, grads, state: FactoredAdamState, params,
+               model_dims=None):
         """-> (updates, new state); the arithmetic of
-        ``scale_by_adam_factored`` (train/state.py:80-128), leaf by leaf."""
+        ``scale_by_adam_factored`` (train/state.py:80-128), leaf by leaf.
+        A mean over an axis that a rank holds a slice of (the last for a
+        column-parallel leaf, the second-to-last for a row-parallel one)
+        is the model group's sum over the whole axis's length."""
         b1, b2 = self.b1, self.b2
-        g = _clip(tree_leaves(grads), self.clip_norm)
+        g = tree_leaves(grads)
+        split = _split_leaves(model_dims, len(g))
+        g = _clip(g, self.clip_norm, split)
+        mesh = current_mesh()
+
+        def mean(x, dim, d, keepdim=False):
+            if d is None or d != x.dim() + dim:
+                return x.mean(dim=dim, keepdim=keepdim)
+            return (model_sum(x.sum(dim=dim, keepdim=keepdim), mesh)
+                    / (x.shape[dim] * mesh.model))
         count = state.count + 1
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
         lr = -float(self.learning_rate(state.count))
         mus, rows, cols, updates = [], [], [], []
-        for g_, m, r, c, p in zip(g, tree_leaves(state.mu),
-                                  tree_leaves(state.nu_row),
-                                  tree_leaves(state.nu_col),
-                                  tree_leaves(params)):
+        for g_, m, r, c, p, d in zip(g, tree_leaves(state.mu),
+                                     tree_leaves(state.nu_row),
+                                     tree_leaves(state.nu_col),
+                                     tree_leaves(params), split):
             m = (b1 * m.float() + (1 - b1) * g_).to(torch.bfloat16)
             g2 = g_.square()
             if c is None:
                 r = b2 * r + (1 - b2) * g2
                 v_hat = r / c2
             else:
-                r = b2 * r + (1 - b2) * g2.mean(dim=-1)
-                c = b2 * c + (1 - b2) * g2.mean(dim=-2)
-                # v_ij ~= R_i * C_j / mean_i(R): exact for rank-1 g^2
-                denom = r.mean(dim=-1, keepdim=True).clamp_min(1e-30)
+                r = b2 * r + (1 - b2) * mean(g2, -1, d)
+                c = b2 * c + (1 - b2) * mean(g2, -2, d)
+                # v_ij ~= R_i * C_j / mean_i(R): exact for rank-1 g^2; R
+                # holds the leaf's rows, split where its rows are
+                d_r = None if d is None or d == g_.dim() - 1 else d
+                denom = mean(r, -1, d_r, keepdim=True).clamp_min(1e-30)
                 v_hat = ((r / denom)[..., :, None] * c[..., None, :]) / c2
             u = (m.float() / c1) / (v_hat.sqrt() + self.eps)
             if self.weight_decay:
@@ -238,20 +284,56 @@ class MultiSteps:
                                inner_state=self.inner.init(params),
                                acc_grads=tree_map(_zeros, params))
 
-    def update(self, grads, state: MultiStepsState, params):
+    def update(self, grads, state: MultiStepsState, params,
+               model_dims=None):
         acc = tree_leaves(state.acc_grads)
         step = torch._foreach_sub(tree_leaves(grads), acc)
         torch._foreach_div_(step, float(state.mini_step + 1))
         acc = torch._foreach_add(acc, step)
         if state.mini_step == self.every_k - 1:
             updates, inner = self.inner.update(tree_unflatten(grads, acc),
-                                               state.inner_state, params)
+                                               state.inner_state, params,
+                                               model_dims=model_dims)
             return updates, MultiStepsState(
                 mini_step=0, gradient_step=state.gradient_step + 1,
                 inner_state=inner, acc_grads=tree_map(_zeros, grads))
         return tree_map(_zeros, grads), state._replace(
             mini_step=state.mini_step + 1,
             acc_grads=tree_unflatten(grads, acc))
+
+
+def state_dims(state, dims):
+    """The split dim of every tensor of an optimizer state (the tree of
+    ``dims``, a parameter tree's split dims, in each moment's place): the
+    moments and accumulated gradients split as their leaf; a factored
+    row EMA (the last axis reduced) splits where its leaf's rows do, a
+    column EMA where its columns do."""
+    if isinstance(state, AdamState):
+        return AdamState(count=None, mu=dims, nu=dims)
+    if isinstance(state, MultiStepsState):
+        return MultiStepsState(mini_step=None, gradient_step=None,
+                               inner_state=state_dims(state.inner_state,
+                                                      dims),
+                               acc_grads=dims)
+    if isinstance(state, FactoredAdamState):
+        def row(d, m):
+            if d is None or m.dim() < 2:
+                return d
+            return None if d == m.dim() - 1 else d
+
+        def col(d, m):
+            if d is None or m.dim() < 2 or d == m.dim() - 2:
+                return None
+            return m.dim() - 2 if d == m.dim() - 1 else d
+
+        def both(fn):
+            return tree_unflatten(dims, [fn(d, m) for d, m in zip(
+                tree_leaves(dims), tree_leaves(state.mu))])
+
+        return FactoredAdamState(count=None, mu=dims, nu_row=both(row),
+                                 nu_col=both(col))
+    raise TypeError(f"state_dims: unknown optimizer state "
+                    f"{type(state).__name__}")
 
 
 def apply_updates(params, updates):

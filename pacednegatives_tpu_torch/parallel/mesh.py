@@ -8,15 +8,18 @@ One process per rank. The mesh keeps the JAX package's three axes:
   holds the positives of its block of pairs and their negatives, as it
   does under ``data`` alone, so in the port the seq axis is plain data
   parallelism over data x seq ranks;
-- ``model`` - tensor parallelism, not ported yet: ``model > 1`` raises
-  (ROADMAP.md slice R4).
+- ``model`` - tensor parallelism: the ranks of one row hold the same rows
+  and split the weights (heads, d_ff and vocab) Megatron-style, each rank
+  keeping its slice of a split leaf as a plain tensor (``shard_params``).
 
 Where the JAX package shards arrays and lets GSPMD partition one global
 program, each rank here runs the program on its own block of rows and the
 steps reduce explicitly over the mesh's *row group* (the ranks of the
 combined (data, seq) axes; parallel/collectives.py). Row block ``i`` of a
 leading axis belongs to the rank at row index ``i``, ``seq`` varying
-fastest: the order of JAX's ``P(("data", "seq"))``.
+fastest: the order of JAX's ``P(("data", "seq"))``. The split layers of
+models/t5.py exchange over the *model group* (the ranks of one row), with
+explicit collectives too. Rank = row index x model + model index.
 
 The ambient-mesh convention is JAX's: ``with mesh:`` makes it the mesh that
 models/t5.py, train/step.py, train/scored_pool.py and the loops read
@@ -32,8 +35,6 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
-
-TENSOR_PARALLEL_ITEM = "ROADMAP.md slice R4, tensor parallelism"
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "pacednegatives_tpu_torch_mesh", default=None)
@@ -68,23 +69,18 @@ class MeshConfig:
         return data, model, seq
 
 
-def _refuse_tensor_parallel(model: int) -> None:
-    if model > 1:
-        raise NotImplementedError(
-            f"a mesh with model={model}: tensor parallelism (split layers, "
-            f"a vocab-sharded embedding) is not ported yet "
-            f"({TENSOR_PARALLEL_ITEM}); use model=1")
-
-
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """A (data, seq, model) mesh of ranks, this process's view of it.
 
     ``rank`` is this process's rank in the default group, ``row_rank`` its
     row index (data-major, seq fastest) and ``row_group`` the process group
-    of the ranks that share its model index; ``device`` is where this rank
-    computes. No DeviceMesh is built: nothing here places DTensors yet
-    (tensor parallelism, ROADMAP.md slice R4, is where one is needed)."""
+    of the ranks that share its model index; ``model_rank`` is its model
+    index and ``model_group`` the process group of the ranks of its row
+    (None at ``model == 1``); ``device`` is where this rank computes. No
+    DeviceMesh is built: every tensor is a plain one and every exchange an
+    explicit collective over one of the two groups, so nothing would read
+    it."""
 
     data: int
     seq: int
@@ -93,6 +89,8 @@ class Mesh:
     rank: int = 0
     row_rank: int = 0
     row_group: Any = None
+    model_rank: int = 0
+    model_group: Any = None
     _tokens: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
@@ -118,19 +116,16 @@ def create_mesh(config: MeshConfig | None = None,
     """Build a (data, seq, model) mesh over the ranks of the initialised
     default process group (``parallel/distributed.py``), one device per
     rank: the current CUDA device, or the CPU with ``device_type="cpu"``.
-    Every rank calls it, in the same order as its other group calls. The
-    rows need only the row group (``dist.new_group``); a
-    ``torch.distributed`` DeviceMesh comes with tensor parallelism
-    (ROADMAP.md slice R4)."""
+    Every rank calls it, in the same order as its other group calls. It
+    creates the row groups (one per model index) and, with ``model > 1``,
+    the model groups (one per row index), each with ``dist.new_group``."""
     config = config or MeshConfig()
-    _refuse_tensor_parallel(config.model)
     if not dist.is_initialized():
         raise RuntimeError(
             "create_mesh needs torch.distributed initialised: call "
             "parallel.distributed.maybe_initialize_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
     data, model, seq = config.resolve(world)
-    _refuse_tensor_parallel(model)
     if device_type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     else:
@@ -142,7 +137,16 @@ def create_mesh(config: MeshConfig | None = None,
         group = dist.new_group(list(range(m, world, model)))
         if rank % model == m:
             row_group = group
-    return Mesh(data, seq, model, device, rank, rank // model, row_group)
+    # one model group per row index: the ranks row * model + (0 .. model-1)
+    model_group = None
+    if model > 1:
+        for row in range(world // model):
+            group = dist.new_group(list(range(row * model,
+                                              (row + 1) * model)))
+            if rank // model == row:
+                model_group = group
+    return Mesh(data, seq, model, device, rank, rank // model, row_group,
+                rank % model, model_group)
 
 
 def current_mesh() -> Mesh | None:
@@ -187,9 +191,9 @@ def batch_sharding(mesh: Mesh, ndim: int = 2) -> Any:
     """JAX's NamedSharding of a batch: the port places no DTensors, each
     rank holds its rows (``shard_batch``, ``local_rows``); not ported."""
     raise NotImplementedError(
-        f"batch_sharding (DTensor placements) is not ported: a rank holds "
-        f"its rows as plain tensors (shard_batch, local_rows); DTensors "
-        f"come with {TENSOR_PARALLEL_ITEM}")
+        "batch_sharding (DTensor placements) is not ported: a rank holds "
+        "its rows as plain tensors (shard_batch, local_rows) and its slices "
+        "of the split weights as plain tensors (shard_params)")
 
 
 def shard_batch(mesh: Mesh, batch: Any) -> Any:
@@ -221,8 +225,136 @@ def replicated(mesh: Mesh, tree: Any) -> Any:
     return broadcast(tree.to(mesh.device), mesh)
 
 
+# The JAX package's per-leaf rules (parallel/mesh.py:141-188): the model-
+# axis dim of each leaf name. (in, out) projections: q/k/v and wi* split
+# their outputs (column-parallel), o and wo their inputs (row-parallel);
+# the embeddings split the vocab, rel_bias the heads; norm scales and
+# every other leaf stay whole.
+_RULES = {"embedding": 0, "rel_bias": 1, "wi_0": 1, "wi_1": 1, "wi": 1,
+          "wo": 0, "q": 1, "k": 1, "v": 1, "o": 0}
+_ATTENTION = ("self_attn", "cross_attn")
+
+
+def _num_heads(params: dict) -> int:
+    for stack in ("encoder", "decoder"):
+        node = params.get(stack, {})
+        table = node.get("rel_bias", node.get("block_0", {}).get(
+            "self_attn", {}).get("rel_bias"))
+        if table is not None:
+            return table.shape[1]
+    raise ValueError("param_shardings: no rel_bias table to read the head "
+                     "count from")
+
+
 def param_shardings(mesh: Mesh, params: Any) -> Any:
-    """JAX's per-leaf tensor-parallel specs: not ported yet."""
-    raise NotImplementedError(
-        f"param_shardings (tensor-parallel weights) is not ported yet "
-        f"({TENSOR_PARALLEL_ITEM})")
+    """The model-axis split of every leaf of a whole T5 parameter tree: a
+    tree of the same structure holding the dim that splits over
+    ``mesh.model`` ranks, or None for a leaf every rank holds whole.
+
+    It follows the JAX package's rules and their divisibility fallback (a
+    dim that does not divide by ``model`` leaves the leaf whole), with one
+    deliberate difference: an attention layer's q/k/v/o and rel_bias split
+    only when ``num_heads % model == 0``, so that a rank holds whole heads,
+    and otherwise the whole layer stays whole on every rank (JAX would
+    split q mid-head where H * d_kv divides and H does not, e.g. t5-base
+    at model=8). A layer with fused q|k|v or k|v leaves stays whole too:
+    the port fuses each rank's slices inside the step. The numbers are the
+    same either way; only the layout differs. The head count is read from
+    the rel_bias tables. Stacked (``blocks``) trees raise, as
+    ``stacked_layers`` does."""
+    model = mesh.model
+    heads = _num_heads(params) if model > 1 else 1
+
+    def walk(node, whole=False):
+        if "blocks" in node:
+            raise NotImplementedError(
+                "param_shardings of the stacked (blocks) layout: "
+                "stacked_layers is not carried over; use block_i")
+        out = {}
+        for name, v in node.items():
+            if isinstance(v, dict):
+                out[name] = walk(v, whole or (
+                    name in _ATTENTION
+                    and (heads % model != 0 or "qkv" in v or "kv" in v)))
+                continue
+            dim = _RULES.get(name)
+            if (v is None or whole or dim is None or model == 1
+                    or dim >= v.dim()
+                    or v.shape[dim] % model
+                    or (name == "rel_bias" and heads % model)):
+                dim = None
+            out[name] = dim
+        return out
+
+    return walk(params)
+
+
+def map_dims(fn, tree: Any, dims: Any) -> Any:
+    """``fn(tensor, dim)`` on every tensor of ``tree`` (nested dicts and
+    NamedTuples; ints and None pass through), ``dims`` a tree of the same
+    structure whose leaves are dims or None."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(map_dims(fn, t, d) for t, d in zip(tree, dims)))
+    if isinstance(tree, dict):
+        return {k: map_dims(fn, v, dims[k]) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, dims)
+    return tree
+
+
+def shard_params(mesh: Mesh, params: Any, dims: Any = None) -> Any:
+    """This rank's slices of a whole parameter tree (or of any tree of
+    ``dims``' structure, an optimizer's moments say): slice
+    ``mesh.model_rank`` of ``model`` equal slices along each leaf's dim,
+    as a tensor of its own; a leaf with no dim is the same tensor.
+    ``dims`` defaults to ``param_shardings(mesh, params)``."""
+    dims = param_shardings(mesh, params) if dims is None else dims
+
+    def cut(x, dim):
+        if dim is None:
+            return x
+        return x.chunk(mesh.model, dim=dim)[mesh.model_rank].contiguous()
+
+    return map_dims(cut, params, dims)
+
+
+def gather_params(mesh: Mesh, shards: Any, dims: Any) -> Any:
+    """The inverse of ``shard_params``: every split leaf all-gathered over
+    the model group and concatenated along its dim (a collective: every
+    rank of the row calls it, in the same order); whole leaves as they
+    are."""
+    from pacednegatives_tpu_torch.parallel.collectives import gather_model
+
+    def whole(x, dim):
+        return x if dim is None else gather_model(x, dim, mesh)
+
+    return map_dims(whole, shards, dims)
+
+
+def model_split(local: int, full: int) -> Mesh | None:
+    """The ambient mesh when a rank holds ``local`` of an axis of ``full``
+    (heads, d_ff or vocab split over its model group), None when it holds
+    the whole axis. The split layers of models/t5.py read it from their
+    weights' shapes, so whole weights run with no collective under any
+    mesh. A shape that no model group explains raises."""
+    if local == full:
+        return None
+    mesh = current_mesh()
+    if mesh is None or mesh.model * local != full:
+        raise ValueError(
+            f"a weight holds {local} of an axis of {full}, which the mesh "
+            f"({'none' if mesh is None else f'model={mesh.model}'}) does "
+            f"not split so")
+    return mesh
+
+
+def refuse_tensor_parallel(what: str) -> None:
+    """Raise under a mesh with ``model > 1``: for the entry points that no
+    JAX entry point or test runs under a mesh (ROADMAP.md, "Not carried
+    over")."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError(
+            f"{what} under tensor parallelism (a mesh with model="
+            f"{mesh.model}): the JAX package runs it under no mesh, so the "
+            f"port does not carry it over; use model=1")

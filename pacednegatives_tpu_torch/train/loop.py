@@ -5,7 +5,10 @@ the loop runs ``chunk_size`` steps, gathers their metrics from the device
 once, and writes them as the JAX loop writes one scanned chunk. The
 checkpoint holds everything resume needs (params, the optimizer's state,
 curriculum state, step, the sampling and dropout generators' states), written
-with ``torch.save`` (there is no orbax), so resume is exact.
+with ``torch.save`` (there is no orbax), so resume is exact. Under tensor
+parallelism the file holds whole leaves (gathered over the model group
+first), so that one process reads it, and restoring into a rank's state
+shards it again.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ import torch
 
 from pacednegatives_tpu_torch.models.t5 import flatten_params, unflatten_params
 from pacednegatives_tpu_torch.parallel.mesh import current_mesh
-from pacednegatives_tpu_torch.train.state import TrainState
+from pacednegatives_tpu_torch.train.state import (
+    TrainState,
+    gather_train_state,
+    shard_train_state,
+)
 
 
 class MetricWriter:
@@ -127,12 +134,14 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 def checkpoint(mesh, path: str, state: TrainState) -> None:
-    """``save_checkpoint`` by rank 0 of a mesh (every rank holds the same
-    state), between two barriers: no rank goes on, or reads it, before it
-    is written."""
+    """``save_checkpoint`` by rank 0 of a mesh (every rank of a row holds
+    the same state, and under tensor parallelism the whole leaves are
+    gathered over the model group first), between two barriers: no rank
+    goes on, or reads it, before it is written."""
     if mesh is None:
         save_checkpoint(path, state)
         return
+    state = gather_train_state(mesh, state)
     mesh.barrier()
     if mesh.rank == 0:
         save_checkpoint(path, state)
@@ -166,7 +175,14 @@ def restore_checkpoint(path: str, template: TrainState,
     """Restore into the structure of ``template`` (an initialized state).
     ``generators=False`` keeps the template's generators: a run trained on
     the card saved a CUDA generator's state, which no CPU generator takes,
-    and reloading weights to score needs none."""
+    and reloading weights to score needs none. A rank's template (with
+    ``param_dims``, under the tensor-parallel mesh it was sharded on)
+    reads the whole leaves and keeps its slices: every rank calls it."""
+    if template.param_dims is not None:
+        mesh = current_mesh()
+        whole = restore_checkpoint(path, gather_train_state(mesh, template),
+                                   generators)
+        return shard_train_state(mesh, whole, template.param_dims)
     saved = torch.load(os.path.join(path, CHECKPOINT_FILE),
                        map_location="cpu", weights_only=True)
     params = unflatten_params(_restore(

@@ -24,7 +24,10 @@ of the batch's queries, and the query embeddings are gathered so that
 every rank mines the global batch from its shard and merges the shards'
 candidates (``parallel.collectives.merge_topk``); each rank then keeps its
 rows of the batch, with the global draws. Metrics and checkpoints are
-written by rank 0.
+written by rank 0. Under tensor parallelism the query embedding runs
+split over the model group, and each refresh encodes with whole weights,
+gathered once on the loop's thread (``train.state.encoder_weights``), so
+that the encode runs no collective, serial or overlapped.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from pacednegatives_tpu_torch.train.loop import (
     write_chunk_metrics,
     writer_of,
 )
-from pacednegatives_tpu_torch.train.state import TrainState
+from pacednegatives_tpu_torch.train.state import TrainState, encoder_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +197,9 @@ def make_refresh_fn(corpus: DeviceCorpus, model_cfg: t5.T5Config,
     each slice is copied in place into one buffer allocated at the first
     slice: no concatenation, so no second full index ever exists, and the
     fp32 transient is one slice. Under a mesh each rank encodes, and
-    returns, its contiguous shard of the docs."""
+    returns, its contiguous shard of the docs. ``params`` are whole
+    weights (the shared embedding and the encoder suffice): under tensor
+    parallelism, ``train.state.encoder_weights`` of the state."""
 
     def refresh(params):
         lo, hi = shard_range(corpus.d_tokens.shape[0], current_mesh())
@@ -322,8 +327,8 @@ class OnlineMiningLoop:
         if self.checkpoint_index and self.checkpoint_dir and start_step:
             embeddings = self._load_index(start_step, device)
         if embeddings is None:
-            embeddings = self._refresh(state.params, start_step, device,
-                                       writer)
+            embeddings = self._refresh(encoder_weights(state, mesh),
+                                       start_step, device, writer)
         carry = (state, embeddings)
         done = start_step
         last_eval = last_ckpt = done
@@ -374,11 +379,11 @@ class OnlineMiningLoop:
                 if self.overlap is not None:
                     if self.overlap.in_flight:  # delay > cadence: land first
                         carry = (state, self.overlap.collect(old=carry[1]))
-                    self.overlap.start(state.params)
+                    self.overlap.start(encoder_weights(state, mesh))
                     swap_at = done + self.overlap_delay_chunks * self.chunk_size
                 else:
-                    carry = (state, self._refresh(state.params, done, device,
-                                                  writer))
+                    carry = (state, self._refresh(
+                        encoder_weights(state, mesh), done, device, writer))
                 next_refresh += self.refresh_every
             if index_ckpt_step is not None:
                 self._save_index(carry[1], index_ckpt_step)

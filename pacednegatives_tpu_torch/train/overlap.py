@@ -40,6 +40,11 @@ so no second full index exists on the encode device.
 
 Built inside a ``with mesh:`` block, a refresher encodes this rank's shard
 of the docs only (the rows ``make_refresh_fn`` encodes under that mesh).
+Its thread runs no collective: two threads issuing collectives on one
+group can interleave and hang. So ``start`` takes whole weights; under
+tensor parallelism the caller gathers them on its own thread
+(``train.state.encoder_weights``, as OnlineMiningLoop does), and a split
+weight reaching the thread raises there (it sees no mesh).
 """
 
 from __future__ import annotations
@@ -124,9 +129,10 @@ class OverlappedRefresher:
         return self._pending is not None and not self._pending[0].done()
 
     def start(self, params) -> None:
-        """Snapshot ``params`` onto the encode device and hand every slice's
-        encode to the refresh thread; returns without waiting for it. Call
-        ``collect`` later."""
+        """Snapshot ``params`` (whole weights; see the module docstring)
+        onto the encode device and hand every slice's encode to the
+        refresh thread; returns without waiting for it. Call ``collect``
+        later."""
         if self._pending is not None:
             raise RuntimeError("refresh already in flight — collect() first")
         snap = t5.tree_map(

@@ -40,7 +40,11 @@ from pacednegatives_tpu_torch.parallel.collectives import (
     gather_batch_with_grad,
     mean_over_ranks,
 )
-from pacednegatives_tpu_torch.parallel.mesh import current_mesh, local_rows
+from pacednegatives_tpu_torch.parallel.mesh import (
+    current_mesh,
+    local_rows,
+    refuse_tensor_parallel,
+)
 from pacednegatives_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -95,7 +99,13 @@ def make_train_step(
     loss on every rank's per-token CE rows (gathered with a gradient), the
     fp32 gradients are averaged over the row group before the optimizer,
     and the curriculum signals and metrics are the global batch's on every
-    rank, in row order."""
+    rank, in row order. Under tensor parallelism (``model > 1``) the state
+    is a rank's (``shard_train_state``): the forward runs split over the
+    model group, the CE and the verbalizer pair are reduced over the vocab
+    columns, split leaves keep their slices' gradients (averaged over the
+    row group only), whole leaves get the same gradient on every rank of
+    the row through the split layers' conjugate Functions, and the
+    optimizer takes ``state.param_dims``."""
     if loss not in ("pair", "lce"):
         raise ValueError(loss)
     if label_grouping not in ("per_example", "flat_tokens"):
@@ -117,12 +127,29 @@ def make_train_step(
     k = microbatches
     acc_dt = torch.float32 if grad_accum_dtype == "fp32" else torch.bfloat16
 
-    def _pre(p: torch.Tensor) -> torch.Tensor:
+    def _pre(p: torch.Tensor, width: int) -> torch.Tensor:
         # the big matmul weights in the compute dtype, once per step
-        # (step.py:186-198); 1-D scales and the (buckets, H) rel_bias stay
-        if p.dim() >= 2 and p.shape[-1] >= 128 and p.dtype == torch.float32:
+        # (step.py:186-198), by the whole leaf's last dim ``width``; 1-D
+        # scales and the (buckets, H) rel_bias stay
+        if p.dim() >= 2 and width >= 128 and p.dtype == torch.float32:
             p = p.to(model_cfg.dtype)
         return p.detach().requires_grad_(True)
+
+    def _widths(src: dict, mesh, dims) -> dict:
+        """Each leaf's whole last dim: a slice's times ``model`` where
+        the leaf splits its last dim (a fused q|k|v or k|v as its q or k
+        does)."""
+        flat = t5.flatten_params(src)
+        if dims is None:
+            return {k: p.shape[-1] for k, p in flat.items()}
+        dims = t5.flatten_params(dims)
+        out = {}
+        for key, p in flat.items():
+            base = (key[:-3] + "q" if key.endswith(".qkv") else
+                    key[:-2] + "k" if key.endswith(".kv") else key)
+            split_last = dims.get(base) == p.dim() - 1
+            out[key] = p.shape[-1] * (mesh.model if split_last else 1)
+        return out
 
     def objective(ce_tok, labels, b):
         """(main loss, (sig_p, sig_n, sig_ce)) of per-token CE rows
@@ -150,7 +177,8 @@ def make_train_step(
         logits = t5.forward_logits(params, model_cfg, ids, labels, mask,
                                    deterministic=not dropout,
                                    dropout_seed=seed, pos_biases=biases)
-        ce_tok = token_ce_per_token(logits, labels)
+        ce_tok = token_ce_per_token(logits, labels,
+                                    vocab_size=model_cfg.vocab_size)
         main, sig = objective(ce_tok, labels, b)
         if mesh is not None:
             # every rank's rows, as one process holds the global batch
@@ -170,6 +198,13 @@ def make_train_step(
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
         mesh = current_mesh()
+        dims = None
+        if mesh is not None and mesh.model > 1:
+            if state.param_dims is None:
+                raise ValueError(
+                    "a step under a mesh with model > 1 needs a rank's "
+                    "state: train.state.shard_train_state(mesh, state)")
+            dims = state.param_dims
         B = batch["pos_ids"].shape[0]
         # Position biases once per step, not per microbatch (step.py:
         # 165-178): the microbatches differentiate against the bias
@@ -187,7 +222,9 @@ def make_train_step(
         with torch.no_grad():
             src = (t5.fuse_attention_params(state.params)
                    if model_cfg.fused_qkv else state.params)
-        flat = t5.flatten_params(t5.tree_map(_pre, src))
+        widths = _widths(src, mesh, dims)
+        flat = {k: _pre(p, widths[k])
+                for k, p in t5.flatten_params(src).items()}
         params_c = t5.unflatten_params(flat)
         leaves = [*flat.values(), *(biases[key] for key in bias_keys)]
         keys = ("pos_ids", "pos_mask", "pos_labels", "neg_ids", "neg_mask",
@@ -249,14 +286,17 @@ def make_train_step(
             [full[key] for key in bias_keys], tables, grad_outputs=gbias)
         _fold_rel_bias_grad(grads, "encoder", g_enc)
         _fold_rel_bias_grad(grads, "decoder", g_dec)
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        updates, opt_state = tx.update(grads, state.opt_state, state.params,
+                                       model_dims=dims)
         params = apply_updates(state.params, updates)
 
         # curriculum signals from the same pass; success compares each
         # positive with the first of its negatives (step.py:310-323)
         with torch.no_grad():
-            p_prob = relevance_probs(p_first, rel_id, nrel_id)
-            n_prob = relevance_probs(n_first, rel_id, nrel_id)
+            p_prob = relevance_probs(p_first, rel_id, nrel_id,
+                                     model_cfg.vocab_size)
+            n_prob = relevance_probs(n_first, rel_id, nrel_id,
+                                     model_cfg.vocab_size)
             neg_rank = batch.get("neg_rank")
             if mesh is not None:
                 # the global batch's signals on every rank, in row order, so
@@ -393,6 +433,7 @@ def make_meta_train_step(
         raise ValueError(f"variant must be 'cheap' or 'std', got {variant!r}")
     if variant == "std":
         _refuse_flash_v3(model_cfg)
+    refuse_tensor_parallel("make_meta_train_step")
 
     def per_example(params, batch):
         def ce(side):
@@ -418,6 +459,7 @@ def make_meta_train_step(
                 for g, p in zip(grads, leaves.values())]
 
     def step(state: TrainState, batch: Batch, batch_idx: int):
+        refuse_tensor_parallel("make_meta_train_step")
         device = batch["pos_ids"].device
         lr = torch.full((), float(meta_lr_schedule(state.step)),
                         dtype=torch.float32, device=device)

@@ -59,11 +59,13 @@ def _unit(rng, n, d):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def _spawn(work: str):
+def _spawn(work: str, *cases: str):
+    """The 4 rank processes of the worker (``cases``: its case set)."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.dirname(WORKER)),
          os.environ.get("PYTHONPATH", "")]))
-    return [subprocess.Popen([sys.executable, WORKER, work, str(rank)],
+    return [subprocess.Popen([sys.executable, WORKER, work, str(rank),
+                              *cases],
                              env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True)
             for rank in range(4)]

@@ -15,6 +15,7 @@ import torch.distributed as dist
 
 import torch_parallel_worker as W
 from pacednegatives_tpu.parallel import MeshConfig as JMeshConfig
+from pacednegatives_tpu_torch.distill.train import make_distill_step
 from pacednegatives_tpu_torch.index import DenseIndex
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.parallel import (
@@ -36,6 +37,7 @@ from pacednegatives_tpu_torch.parallel.mesh import (
     current_mesh,
     local_rows,
 )
+from pacednegatives_tpu_torch.train.step import make_meta_train_step
 
 
 @pytest.mark.parametrize("config,n", [
@@ -56,15 +58,24 @@ def test_mesh_resolution_matches_jax(config, n):
 
 
 def test_tensor_parallel_is_refused():
-    """model > 1 names its ROADMAP slice (R4); flash_v3 refuses a mesh
-    with a model axis as the JAX package does (tests/test_flash_v3.py:324);
-    rows that do not split over data x seq raise."""
-    with pytest.raises(NotImplementedError, match="slice R4"):
-        create_mesh(MeshConfig(data=1, model=2), "cpu")
-    with pytest.raises(NotImplementedError, match="slice R4"):
-        param_shardings(Mesh(1, 1, 1, torch.device("cpu")), {})
-    with pytest.raises(NotImplementedError, match="slice R4"):
+    """What stays refused under model > 1: DTensor placements
+    (batch_sharding), the stacked layout's shardings, the meta and distill
+    steps (no JAX entry point runs them under a mesh); flash_v3 refuses a
+    mesh with a model axis as the JAX package does
+    (tests/test_flash_v3.py:324); rows that do not split over data x seq
+    raise."""
+    with pytest.raises(NotImplementedError, match="plain tensors"):
         batch_sharding(Mesh(1, 1, 1, torch.device("cpu")), 3)
+    tiny = t5.T5Config.tiny()
+    tiny_params = t5.init_params(tiny, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="stacked"):
+        param_shardings(Mesh(1, 1, 2, torch.device("cpu")),
+                        t5.stack_params(tiny_params))
+    with Mesh(1, 1, 2, torch.device("cpu")):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            make_meta_train_step(tiny, None, None, lambda s: 0.0)
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            make_distill_step(tiny, None)
     cfg = t5.T5Config(vocab_size=256, d_model=64, d_kv=64, d_ff=128,
                       num_heads=2, num_layers=1, num_decoder_layers=1,
                       flash_v3=True, fused_qkv=True)

@@ -1,0 +1,8 @@
+"""device_idle.train: the share of the traced window in which no kernel,
+copy or fill ran on the card, in percent."""
+
+from benchmarks.common.roofline import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)

@@ -1,0 +1,19 @@
+"""host_syncs_per_request.rerank: the port's ``host_syncs`` counter (each
+blocking read back to the host, and each copy that waits on the stream,
+that ``Reranker.rerank`` makes) over the traced window, per
+``pnt.rerank.request`` span of the window. ``utils.profiling.recorded()``
+holds the run's one profiler recording; a program without it reads
+nothing."""
+
+from pacednegatives_tpu_torch.utils import profiling
+
+
+def read(ctx):
+    recorded = getattr(profiling, "recorded", None)
+    if recorded is None:
+        return None
+    rec = recorded()
+    requests = sum(s["name"] == "pnt.rerank.request" for s in rec["spans"])
+    if not requests:
+        return None
+    return rec["counts"].get("host_syncs", 0) / requests

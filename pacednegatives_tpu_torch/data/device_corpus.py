@@ -17,6 +17,7 @@ import torch
 
 from pacednegatives_tpu_torch.data.pipeline import TokenizedStore
 from pacednegatives_tpu_torch.data.triples import TripletStore
+from pacednegatives_tpu_torch.utils.profiling import host_sync
 from pacednegatives_tpu_torch.ops.sampling import (
     difficulty_to_index,
     sample_pool_indices_batch,
@@ -147,8 +148,10 @@ class DeviceCorpus:
 
     def labels(self, B: int, positive: bool) -> torch.Tensor:
         tok = self.true_id if positive else self.false_id
-        return torch.tensor([tok, self.eos_id], dtype=torch.int64,
-                            device=self.device).expand(B, 2)
+        with host_sync("corpus.labels"):
+            row = torch.tensor([tok, self.eos_id], dtype=torch.int64,
+                               device=self.device)
+        return row.expand(B, 2)
 
     def pair_batch(self, pair_idx: torch.Tensor, difficulty):
         """Single-negative batch at a difficulty level (reference

@@ -24,6 +24,12 @@ from pacednegatives_tpu_torch.models.quant import (
     quantize_scoring_params,
     score_batch_int8,
 )
+from pacednegatives_tpu_torch.utils.profiling import (
+    count,
+    host_sync,
+    recording,
+    span,
+)
 
 # leaves that only ever enter a matmul in cfg.dtype: casting them once is
 # the same as the per-use casts (norm scales and rel_bias stay fp32)
@@ -71,6 +77,7 @@ class Reranker:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        self._requests = 0  # the id of the next request's span
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Reranker(device='cuda'): torch.cuda.is_available() is "
@@ -92,29 +99,38 @@ class Reranker:
 
     def _score(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            s = self._score_fn(
-                self.params, self.cfg,
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-                rel_id=self.rel_id, nrel_id=self.nrel_id,
-            )
-            return s.float().cpu().numpy()
+            with host_sync("rerank.upload", 2):
+                ids_d = torch.from_numpy(ids).to(self.device)
+                mask_d = torch.from_numpy(mask).to(self.device)
+            s = self._score_fn(self.params, self.cfg, ids_d, mask_d,
+                               rel_id=self.rel_id, nrel_id=self.nrel_id)
+            with host_sync("rerank.scores"):
+                return s.float().cpu().numpy()
 
     def _score_block(self, qs: np.ndarray, ds: np.ndarray,
                      out_len: int | None) -> np.ndarray:
         """Score one <=batch_size block, padded to the fixed batch shape by
-        repeating its last row (rerank.py:78-81)."""
-        m = len(qs)
-        B = self.batch_size
-        if m < B:
-            padn = B - m
-            qs = np.concatenate([qs, np.repeat(qs[-1:], padn)])
-            ds = np.concatenate([ds, np.repeat(ds[-1:], padn)])
-        if self.packed:
-            ids, mask = self.store.assemble_host_packed(qs, ds, out_len)
-        else:
-            ids, mask = self.store.assemble_host(qs, ds)
-        return self._score(ids, mask)[:m]
+        repeating its last row (rerank.py:78-81). Counts the block's real
+        tokens (``rerank.tokens_real``) and the positions it runs
+        (``rerank.tokens_run``: rows x width, the padding rows included)."""
+        with span("pnt.rerank.block"):
+            m = len(qs)
+            B = self.batch_size
+            with span("pnt.rerank.assemble"):
+                if m < B:
+                    padn = B - m
+                    qs = np.concatenate([qs, np.repeat(qs[-1:], padn)])
+                    ds = np.concatenate([ds, np.repeat(ds[-1:], padn)])
+                if self.packed:
+                    ids, mask = self.store.assemble_host_packed(qs, ds,
+                                                                out_len)
+                else:
+                    ids, mask = self.store.assemble_host(qs, ds)
+                if recording():
+                    count("rerank.tokens_real", int(mask[:m].sum()))
+                    count("rerank.tokens_run", mask.size)
+            with span("pnt.rerank.forward"):
+                return self._score(ids, mask)[:m]
 
     def _bucket_plan(self, q_rows: np.ndarray,
                      d_rows: np.ndarray) -> list[tuple[np.ndarray, int]]:
@@ -159,7 +175,9 @@ class Reranker:
         B = self.batch_size
         out = np.zeros(M, np.float32)
         if self.packed and self.bucket_lens:
-            for blk, out_len in self._bucket_plan(q_rows, d_rows):
+            with span("pnt.rerank.plan"):
+                plan = self._bucket_plan(q_rows, d_rows)
+            for blk, out_len in plan:
                 out[blk] = self._score_block(q_rows[blk], d_rows[blk], out_len)
             return out
         for s in range(0, M, B):
@@ -170,21 +188,26 @@ class Reranker:
     def rerank(self, run: Mapping[str, Sequence[str]],
                depth: int | None = None) -> dict[str, list[str]]:
         """Rerank each query's candidate list by model score (desc)."""
-        q_rows, d_rows = [], []
-        items: list[tuple[str, list[str]]] = []
-        for qid, docs in run.items():
-            docs = list(docs)[: depth or len(docs)]
-            items.append((qid, docs))
-            for d in docs:
-                q_rows.append(self.corpus.query_index[qid])
-                d_rows.append(self.corpus.doc_index[d])
-        scores = self.score_pairs(np.asarray(q_rows, np.int64),
-                                  np.asarray(d_rows, np.int64))
-        out: dict[str, list[str]] = {}
-        pos = 0
-        for qid, docs in items:
-            s = scores[pos : pos + len(docs)]
-            pos += len(docs)
-            order = np.argsort(-s, kind="stable")
-            out[qid] = [docs[i] for i in order]
-        return out
+        self._requests += 1
+        with span("pnt.rerank.request", self._requests - 1):
+            with span("pnt.rerank.plan"):
+                q_rows, d_rows = [], []
+                items: list[tuple[str, list[str]]] = []
+                for qid, docs in run.items():
+                    docs = list(docs)[: depth or len(docs)]
+                    items.append((qid, docs))
+                    for d in docs:
+                        q_rows.append(self.corpus.query_index[qid])
+                        d_rows.append(self.corpus.doc_index[d])
+                q_rows = np.asarray(q_rows, np.int64)
+                d_rows = np.asarray(d_rows, np.int64)
+            scores = self.score_pairs(q_rows, d_rows)
+            with span("pnt.rerank.order"):
+                out: dict[str, list[str]] = {}
+                pos = 0
+                for qid, docs in items:
+                    s = scores[pos : pos + len(docs)]
+                    pos += len(docs)
+                    order = np.argsort(-s, kind="stable")
+                    out[qid] = [docs[i] for i in order]
+            return out

@@ -11,6 +11,7 @@ import torch
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.parallel.collectives import reduce_from_model
 from pacednegatives_tpu_torch.parallel.mesh import model_split
+from pacednegatives_tpu_torch.utils.profiling import host_sync
 
 # t5 sentencepiece: tokenizer.encode('true')[0] == 1176, 'false' -> 6136.
 VERBALIZER_TRUE = 1176
@@ -24,7 +25,8 @@ def _pair(first_token_logits: torch.Tensor, rel_id: int, nrel_id: int,
     columns), each column comes from the rank that owns it: the others
     put 0 there, and the pair is summed over the model group."""
     if vocab_size is None or first_token_logits.shape[-1] == vocab_size:
-        return first_token_logits[:, [rel_id, nrel_id]]
+        with host_sync("monot5.pair"):  # the index list goes to the device
+            return first_token_logits[:, [rel_id, nrel_id]]
     width = first_token_logits.shape[-1]
     mesh = model_split(width, vocab_size)
     cols = (torch.tensor([rel_id, nrel_id], device=first_token_logits.device)

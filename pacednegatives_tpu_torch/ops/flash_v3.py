@@ -49,6 +49,7 @@ from pacednegatives_tpu_torch.ops.flash import (
     flash_attention_forward_plain,
 )
 from pacednegatives_tpu_torch.ops.gemm import gemm, gemm_plain
+from pacednegatives_tpu_torch.utils.profiling import span
 
 __all__ = [
     "NEG_INF",
@@ -186,7 +187,8 @@ def fused_self_attention(x, wqkv, wo, pos3, key_mask):
     """y = attn(x Wqkv) Wo, differentiable (flash_v3.py:377): the forward is
     ``v3_forward`` and the backward ``v3_backward`` (CUDA kernels for CUDA
     tensors, plain versions for CPU tensors)."""
-    return FusedSelfAttention.apply(x, wqkv, wo, pos3, key_mask)
+    with span("pnt.attn"):
+        return FusedSelfAttention.apply(x, wqkv, wo, pos3, key_mask)
 
 
 def fused_self_attention_plain(x, wqkv, wo, pos3, key_mask):

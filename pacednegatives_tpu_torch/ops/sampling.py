@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from pacednegatives_tpu_torch.utils.profiling import host_sync
+
 # fp32-safe probability clamp (see pacednegatives_tpu/ops/sampling.py:35-41)
 _P_EPS = 1e-6
 
@@ -23,7 +25,8 @@ def binomial_log_pmf(k: torch.Tensor, n, p) -> torch.Tensor:
     xlog1py make the endpoints exact (0 * log 0 = 0) even if a caller
     bypasses the clamp."""
     k = k.float()
-    n = torch.as_tensor(n, dtype=torch.float32, device=k.device)
+    with host_sync("sampling.n"):
+        n = torch.as_tensor(n, dtype=torch.float32, device=k.device)
     p = torch.as_tensor(p, dtype=torch.float32, device=k.device)
     p = p.clamp(_P_EPS, 1.0 - _P_EPS)
     return (

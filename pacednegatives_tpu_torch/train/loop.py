@@ -29,6 +29,7 @@ from pacednegatives_tpu_torch.train.state import (
     gather_train_state,
     shard_train_state,
 )
+from pacednegatives_tpu_torch.utils.profiling import host_sync, span
 
 
 class MetricWriter:
@@ -269,6 +270,10 @@ class TrainLoop:
         """Train to ``total_steps``. Under a mesh, run it inside ``with
         mesh:`` on every rank: the same pair stream feeds every rank, and
         rank 0 writes the metrics and checkpoints."""
+        with span("pnt.loop.run"):
+            return self._run(state, total_steps, writer)
+
+    def _run(self, state, total_steps, writer):
         mesh = current_mesh()
         writer = writer_of(mesh, writer)
         stream = pair_index_stream(
@@ -280,56 +285,61 @@ class TrainLoop:
         for _ in range(start_step):  # skip consumed batches: exact resume
             next(stream)
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         done = start_step
         chunk_i = 0
         last_ckpt = done
         last_eval = done
         while done < total_steps:
-            n = min(self.chunk_size, total_steps - done)
-            idx = torch.from_numpy(
-                np.stack([next(stream) for _ in range(n)]).astype(np.int64)
-            ).to(device)
-            rows = []
-            for t in range(n):
-                state, m = self._step(state, idx[t])
-                rows.append(m)
-            done += n
-            chunk_i += 1
-
-            if chunk_i % self.log_every_chunks == 0:
-                write_chunk_metrics(writer, rows, done,
-                                    done_per_sec(done - start_step, t0),
-                                    self.log_mode)
-
-            if (
-                self.checkpoint_dir
-                and self.checkpoint_every_steps
-                and done - last_ckpt >= self.checkpoint_every_steps
-            ):
-                last_ckpt = done
-                checkpoint(mesh, os.path.join(self.checkpoint_dir,
-                                              f"step_{done}"), state)
-
-            if (
-                self.eval_fn is not None
-                and self.eval_every_steps
-                and done - last_eval >= self.eval_every_steps
-            ):
-                last_eval = done
-                ev = self.eval_fn(state)
-                writer.write(
-                    {"step": done, **{f"eval/{k}": v for k, v in ev.items()}}
+            with span("pnt.loop.chunk", done):
+                n = min(self.chunk_size, total_steps - done)
+                idx = torch.from_numpy(
+                    np.stack([next(stream) for _ in range(n)]).astype(np.int64)
                 )
-                writer.flush()
+                with host_sync("loop.pair_idx"):
+                    idx = idx.to(device)
+                rows = []
+                for t in range(n):
+                    state, m = self._step(state, idx[t])
+                    rows.append(m)
+                done += n
+                chunk_i += 1
 
-        writer.write({"step": done, "time": time.time() - t0})
+                if chunk_i % self.log_every_chunks == 0:
+                    write_chunk_metrics(writer, rows, done,
+                                        done_per_sec(done - start_step, t0),
+                                        self.log_mode)
+
+                if (
+                    self.checkpoint_dir
+                    and self.checkpoint_every_steps
+                    and done - last_ckpt >= self.checkpoint_every_steps
+                ):
+                    last_ckpt = done
+                    checkpoint(mesh, os.path.join(self.checkpoint_dir,
+                                                  f"step_{done}"), state)
+
+                if (
+                    self.eval_fn is not None
+                    and self.eval_every_steps
+                    and done - last_eval >= self.eval_every_steps
+                ):
+                    last_eval = done
+                    ev = self.eval_fn(state)
+                    writer.write(
+                        {"step": done,
+                         **{f"eval/{k}": v for k, v in ev.items()}}
+                    )
+                    writer.flush()
+
+        writer.write({"step": done, "time": time.perf_counter() - t0})
         writer.flush()
         return state
 
 
 def done_per_sec(steps: int, t0: float) -> float:
-    dt = time.time() - t0
+    """Steps a second since ``t0`` (``time.perf_counter``)."""
+    dt = time.perf_counter() - t0
     return steps / dt if dt > 0 else 0.0
 
 
@@ -338,19 +348,23 @@ def write_chunk_metrics(writer: MetricWriter, rows: list[dict], done: int,
     """Write one chunk's per-step metric dicts (read from the device once)
     ending at step ``done``: every step ("all"), their mean ("mean") or
     the last ("last"); ``steps_per_sec`` goes on the chunk's last row."""
-    n = len(rows)
-    host = {k: torch.stack([r[k] for r in rows]).float().cpu().numpy()
-            for k in rows[0]}
-    if log_mode == "all":
-        for t in range(n):
-            row = {k: v[t] for k, v in host.items()}
-            if t == n - 1:
-                row["steps_per_sec"] = sps
-            writer.write({"step": done - n + 1 + t, **row})
-    elif log_mode == "mean":
-        writer.write({"step": done, **{k: v.mean() for k, v in host.items()},
-                      "steps_per_sec": sps})
-    else:
-        writer.write({"step": done, **{k: v[-1] for k, v in host.items()},
-                      "steps_per_sec": sps})
-    writer.flush()
+    with span("pnt.loop.read_metrics"):
+        n = len(rows)
+        with host_sync("loop.metrics", len(rows[0])):
+            host = {k: torch.stack([r[k] for r in rows]).float().cpu()
+                    .numpy() for k in rows[0]}
+        if log_mode == "all":
+            for t in range(n):
+                row = {k: v[t] for k, v in host.items()}
+                if t == n - 1:
+                    row["steps_per_sec"] = sps
+                writer.write({"step": done - n + 1 + t, **row})
+        elif log_mode == "mean":
+            writer.write({"step": done,
+                          **{k: v.mean() for k, v in host.items()},
+                          "steps_per_sec": sps})
+        else:
+            writer.write({"step": done,
+                          **{k: v[-1] for k, v in host.items()},
+                          "steps_per_sec": sps})
+        writer.flush()

@@ -335,7 +335,7 @@ class OnlineMiningLoop:
         next_refresh = ((done // self.refresh_every) + 1) * self.refresh_every
         swap_at = None  # overlapped refresh: the step at which it lands
         index_ckpt_step = None  # pending post-refresh index snapshot
-        t0 = time.time()
+        t0 = time.perf_counter()
         while done < total_steps:
             k = min(self.chunk_size, total_steps - done)
             idx = torch.from_numpy(
@@ -391,6 +391,6 @@ class OnlineMiningLoop:
         if self.overlap is not None and self.overlap.in_flight:
             # an in-flight refresh nobody will read: dropped, not assembled
             self.overlap.discard()
-        writer.write({"step": done, "time": time.time() - t0})
+        writer.write({"step": done, "time": time.perf_counter() - t0})
         writer.flush()
         return carry[0]

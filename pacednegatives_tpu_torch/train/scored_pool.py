@@ -50,6 +50,7 @@ from pacednegatives_tpu_torch.ops.sampling import sample_pool_indices_batch
 from pacednegatives_tpu_torch.parallel.collectives import gather_batch
 from pacednegatives_tpu_torch.parallel.mesh import current_mesh, local_rows
 from pacednegatives_tpu_torch.train.state import TrainState
+from pacednegatives_tpu_torch.utils.profiling import host_sync, span
 
 
 def balanced_slots(n_pool: int, c: int) -> np.ndarray:
@@ -83,7 +84,7 @@ def score_candidates(score_fn, ids: torch.Tensor, mask: torch.Tensor, *,
     # bucket runs at the full width
     widths = tuple(b for b in buckets if b < L) + (L,)
     use_buckets = len(widths) > 1
-    with torch.no_grad():
+    with span("pnt.scored.score"), torch.no_grad():
         if use_buckets:
             if not packed:
                 raise ValueError(
@@ -96,8 +97,10 @@ def score_candidates(score_fn, ids: torch.Tensor, mask: torch.Tensor, *,
             perm = torch.argsort(lengths, stable=True)
             ids, mask = ids[perm], mask[perm]
             longest = lengths[perm].view(rows // chunk, chunk).amax(dim=1)
+            with host_sync("scored.widths"):
+                longest = longest.tolist()
             chunk_widths = [widths[bisect.bisect_left(widths, w)]
-                            for w in longest.tolist()]
+                            for w in longest]
         else:
             chunk_widths = [L] * (rows // chunk)
         split = ((lambda t: t) if mesh is None
@@ -165,17 +168,23 @@ def make_scored_pool_step(
         raise ValueError(f"score_buckets must be positive, got {buckets}")
 
     def fused(state: TrainState, pair_idx: torch.Tensor, corpus=None):
-        corpus = default_corpus if corpus is None else corpus
+        with span("pnt.step", state.step):
+            return scored_step(state, pair_idx,
+                               default_corpus if corpus is None else corpus)
+
+    def scored_step(state: TrainState, pair_idx: torch.Tensor, corpus):
         mesh = current_mesh()
         B = pair_idx.shape[0]
         dev = corpus.device
-        difficulty = controller.difficulty(state.curriculum)
-        slots = torch.from_numpy(slots_np).to(dev, torch.int64)
-
-        q = corpus.query_rows[pair_idx]
-        pos_d = corpus.pos_rows[pair_idx]
-        cand_d = corpus.pools[pair_idx][:, slots]  # (B, C)
-        ids, mask = corpus.assemble(q.repeat_interleave(C), cand_d.reshape(-1))
+        with span("pnt.step.sample"):
+            difficulty = controller.difficulty(state.curriculum)
+            with host_sync("scored.slots"):
+                slots = torch.from_numpy(slots_np).to(dev, torch.int64)
+            q = corpus.query_rows[pair_idx]
+            pos_d = corpus.pos_rows[pair_idx]
+            cand_d = corpus.pools[pair_idx][:, slots]  # (B, C)
+            ids, mask = corpus.assemble(q.repeat_interleave(C),
+                                        cand_d.reshape(-1))
 
         with torch.no_grad():
             if score_dtype in ("int8", "int8_bf16"):
@@ -200,37 +209,40 @@ def make_scored_pool_step(
                                packed=corpus.packed, mesh=mesh)
         scores = raw.reshape(B, C)
 
-        # easiest (lowest relevance) -> hardest (highest), per pair
-        order = torch.argsort(scores, dim=1, stable=True)
-        means = torch.as_tensor(difficulty, dtype=torch.float32,
-                                device=dev).expand(B)
-        sel = sample_pool_indices_batch(state.generator, C, means, n)
-        picked = torch.gather(order, 1, sel)  # (B, n) candidate columns
-        neg_d = torch.gather(cand_d, 1, picked)  # (B, n) doc rows
+        with span("pnt.scored.draw"):
+            # easiest (lowest relevance) -> hardest (highest), per pair
+            order = torch.argsort(scores, dim=1, stable=True)
+            means = torch.as_tensor(difficulty, dtype=torch.float32,
+                                    device=dev).expand(B)
+            sel = sample_pool_indices_batch(state.generator, C, means, n)
+            picked = torch.gather(order, 1, sel)  # (B, n) candidate columns
+            neg_d = torch.gather(cand_d, 1, picked)  # (B, n) doc rows
 
-        pos_ids, pos_mask = corpus.assemble(q, pos_d)
-        neg_ids, neg_mask = corpus.assemble(q.repeat_interleave(n),
-                                            neg_d.reshape(-1))
-        static_pos = slots.float()[picked.reshape(-1)]
-        batch = {
-            "pos_ids": pos_ids,
-            "pos_mask": pos_mask,
-            "pos_labels": corpus.labels(B, True),
-            "neg_ids": neg_ids,
-            "neg_mask": neg_mask,
-            "neg_labels": corpus.labels(B * n, False),
-            # model-order position of the drawn negatives (0 = easiest for
-            # the current model)
-            "neg_rank": (sel.float() / max(C - 1, 1)).reshape(-1),
-        }
-        if mesh is not None:
-            batch = {k: local_rows(v, mesh) for k, v in batch.items()}
+            pos_ids, pos_mask = corpus.assemble(q, pos_d)
+            neg_ids, neg_mask = corpus.assemble(q.repeat_interleave(n),
+                                                neg_d.reshape(-1))
+            static_pos = slots.float()[picked.reshape(-1)]
+            batch = {
+                "pos_ids": pos_ids,
+                "pos_mask": pos_mask,
+                "pos_labels": corpus.labels(B, True),
+                "neg_ids": neg_ids,
+                "neg_mask": neg_mask,
+                "neg_labels": corpus.labels(B * n, False),
+                # model-order position of the drawn negatives (0 = easiest
+                # for the current model)
+                "neg_rank": (sel.float() / max(C - 1, 1)).reshape(-1),
+            }
+            if mesh is not None:
+                batch = {k: local_rows(v, mesh) for k, v in batch.items()}
         new_state, metrics = step_fn(state, batch)
+        with host_sync("scored.neg_scored"):
+            neg_scored = torch.tensor(float(B * C + B * n), device=dev)
         metrics = {
             **metrics,
             # candidates scored this step + the trained negatives' scores
             # produced by the gradient pass itself
-            "neg_scored": torch.tensor(float(B * C + B * n), device=dev),
+            "neg_scored": neg_scored,
             # where the selected negatives sit in the static order
             "neg_rank_static": (static_pos
                                 / max(corpus.n_neg - 1, 1)).mean(),

@@ -46,6 +46,7 @@ from pacednegatives_tpu_torch.parallel.mesh import (
     refuse_tensor_parallel,
 )
 from pacednegatives_tpu_torch.train.state import TrainState
+from pacednegatives_tpu_torch.utils.profiling import span
 
 Batch = dict[str, torch.Tensor]
 
@@ -205,136 +206,142 @@ def make_train_step(
                     "a step under a mesh with model > 1 needs a rank's "
                     "state: train.state.shard_train_state(mesh, state)")
             dims = state.param_dims
-        B = batch["pos_ids"].shape[0]
-        # Position biases once per step, not per microbatch (step.py:
-        # 165-178): the microbatches differentiate against the bias
-        # tensors, whose summed cotangent goes through the bucket gather's
-        # backward once, below.
-        tables = [t5._rel_bias(state.params[s]).detach().requires_grad_(True)
-                  for s in ("encoder", "decoder")]
-        with torch.enable_grad():
-            full = t5.position_bias_from_tables(
-                *tables, model_cfg, batch["pos_ids"].shape[1],
-                batch["pos_labels"].shape[1])
-        bias_keys = ("enc", "dec_self")
-        biases = {key: full[key].detach().requires_grad_(True)
-                  for key in bias_keys}
-        with torch.no_grad():
-            src = (t5.fuse_attention_params(state.params)
-                   if model_cfg.fused_qkv else state.params)
-        widths = _widths(src, mesh, dims)
-        flat = {k: _pre(p, widths[k])
-                for k, p in t5.flatten_params(src).items()}
-        params_c = t5.unflatten_params(flat)
-        leaves = [*flat.values(), *(biases[key] for key in bias_keys)]
-        keys = ("pos_ids", "pos_mask", "pos_labels", "neg_ids", "neg_mask",
-                "neg_labels")
-        if k <= 1:
-            chunks = [tuple(batch[key] for key in keys)]
-        else:
-            if B % k:
-                raise ValueError(
-                    f"batch {B} not divisible by microbatches {k}")
-            m = B // k
-            rows = (1, 1, 1, n, n, n)
-            chunks = [tuple(batch[key][i * m * r:(i + 1) * m * r]
-                            for key, r in zip(keys, rows))
-                      for i in range(k)]
-        # one dropout seed a microbatch, from the host generator
-        seeds = (torch.randint(2**63 - 1, (len(chunks),),
-                               generator=state.dropout_generator).tolist()
-                 if dropout else [None] * len(chunks))
-        if dropout and mesh is not None:
-            # the ranks' generators agree: one stream a rank, so that no two
-            # ranks draw the same masks for their rows
-            seeds = [(s + mesh.row_rank) % (2**63 - 1) for s in seeds]
+        with span("pnt.step.prepare"):
+            B = batch["pos_ids"].shape[0]
+            # Position biases once per step, not per microbatch (step.py:
+            # 165-178): the microbatches differentiate against the bias
+            # tensors, whose summed cotangent goes through the bucket
+            # gather's backward once, below.
+            tables = [t5._rel_bias(state.params[s]).detach()
+                      .requires_grad_(True) for s in ("encoder", "decoder")]
+            with torch.enable_grad():
+                full = t5.position_bias_from_tables(
+                    *tables, model_cfg, batch["pos_ids"].shape[1],
+                    batch["pos_labels"].shape[1])
+            bias_keys = ("enc", "dec_self")
+            biases = {key: full[key].detach().requires_grad_(True)
+                      for key in bias_keys}
+            with torch.no_grad():
+                src = (t5.fuse_attention_params(state.params)
+                       if model_cfg.fused_qkv else state.params)
+            widths = _widths(src, mesh, dims)
+            flat = {k: _pre(p, widths[k])
+                    for k, p in t5.flatten_params(src).items()}
+            params_c = t5.unflatten_params(flat)
+            leaves = [*flat.values(), *(biases[key] for key in bias_keys)]
+            keys = ("pos_ids", "pos_mask", "pos_labels", "neg_ids",
+                    "neg_mask", "neg_labels")
+            if k <= 1:
+                chunks = [tuple(batch[key] for key in keys)]
+            else:
+                if B % k:
+                    raise ValueError(
+                        f"batch {B} not divisible by microbatches {k}")
+                m = B // k
+                rows = (1, 1, 1, n, n, n)
+                chunks = [tuple(batch[key][i * m * r:(i + 1) * m * r]
+                                for key, r in zip(keys, rows))
+                          for i in range(k)]
+            # one dropout seed a microbatch, from the host generator
+            seeds = (torch.randint(2**63 - 1, (len(chunks),),
+                                   generator=state.dropout_generator).tolist()
+                     if dropout else [None] * len(chunks))
+            if dropout and mesh is not None:
+                # the ranks' generators agree: one stream a rank, so that no
+                # two ranks draw the same masks for their rows
+                seeds = [(s + mesh.row_rank) % (2**63 - 1) for s in seeds]
         grads = None
         main_loss = torch.zeros((), dtype=torch.float32,
                                 device=batch["pos_ids"].device)
         auxes = []
         for chunk, seed in zip(chunks, seeds):
-            with torch.enable_grad():
-                l_i, aux_i = loss_fn(mesh, params_c, biases, seed, *chunk)
-                g_i = torch.autograd.grad(l_i, leaves, allow_unused=True)
-            g_i = [torch.zeros_like(p) if g is None else g
-                   for g, p in zip(g_i, leaves)]
-            if k <= 1:
-                grads = g_i
-                main_loss = l_i.detach()
-            else:
-                # each microbatch's gradient / k in its own dtype, then into
-                # the carry's dtype (step.py:261-297)
-                parts = [(g / k).to(acc_dt) for g in g_i]
-                grads = parts if grads is None else [
-                    a.add_(p) for a, p in zip(grads, parts)]
-                main_loss = main_loss + l_i.detach() / k
-            auxes.append(aux_i)
+            with span("pnt.step.fwd_bwd"):
+                with torch.enable_grad():
+                    l_i, aux_i = loss_fn(mesh, params_c, biases, seed,
+                                         *chunk)
+                    g_i = torch.autograd.grad(l_i, leaves,
+                                              allow_unused=True)
+                g_i = [torch.zeros_like(p) if g is None else g
+                       for g, p in zip(g_i, leaves)]
+                if k <= 1:
+                    grads = g_i
+                    main_loss = l_i.detach()
+                else:
+                    # each microbatch's gradient / k in its own dtype, then
+                    # into the carry's dtype (step.py:261-297)
+                    parts = [(g / k).to(acc_dt) for g in g_i]
+                    grads = parts if grads is None else [
+                        a.add_(p) for a, p in zip(grads, parts)]
+                    main_loss = main_loss + l_i.detach() / k
+                auxes.append(aux_i)
         sig_p, sig_n, sig_ce, p_first, n_first = (
             torch.cat(parts) for parts in zip(*auxes))
 
         # the optimizer and the bias fold run in fp32 (step.py:288-305)
-        grads = [g.float() for g in grads]
-        if mesh is not None:
-            # one global-batch step: the ranks' gradients averaged before
-            # the optimizer (and so before its clipping)
-            grads = mean_over_ranks(grads, mesh)
-        gbias = grads[len(flat):]
-        grads = t5.unflatten_params(dict(zip(flat, grads[:len(flat)])))
-        if model_cfg.fused_qkv:
-            grads = t5.split_attention_grads(grads)
-        g_enc, g_dec = torch.autograd.grad(
-            [full[key] for key in bias_keys], tables, grad_outputs=gbias)
-        _fold_rel_bias_grad(grads, "encoder", g_enc)
-        _fold_rel_bias_grad(grads, "decoder", g_dec)
-        updates, opt_state = tx.update(grads, state.opt_state, state.params,
-                                       model_dims=dims)
-        params = apply_updates(state.params, updates)
+        with span("pnt.step.optimizer"):
+            grads = [g.float() for g in grads]
+            if mesh is not None:
+                # one global-batch step: the ranks' gradients averaged before
+                # the optimizer (and so before its clipping)
+                grads = mean_over_ranks(grads, mesh)
+            gbias = grads[len(flat):]
+            grads = t5.unflatten_params(dict(zip(flat, grads[:len(flat)])))
+            if model_cfg.fused_qkv:
+                grads = t5.split_attention_grads(grads)
+            g_enc, g_dec = torch.autograd.grad(
+                [full[key] for key in bias_keys], tables, grad_outputs=gbias)
+            _fold_rel_bias_grad(grads, "encoder", g_enc)
+            _fold_rel_bias_grad(grads, "decoder", g_dec)
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params, model_dims=dims)
+            params = apply_updates(state.params, updates)
 
         # curriculum signals from the same pass; success compares each
         # positive with the first of its negatives (step.py:310-323)
-        with torch.no_grad():
-            p_prob = relevance_probs(p_first, rel_id, nrel_id,
-                                     model_cfg.vocab_size)
-            n_prob = relevance_probs(n_first, rel_id, nrel_id,
-                                     model_cfg.vocab_size)
-            neg_rank = batch.get("neg_rank")
-            if mesh is not None:
-                # the global batch's signals on every rank, in row order, so
-                # that the ranks' curricula stay one
-                sig_p, sig_n, sig_ce, p_prob, n_prob = (
-                    gather_batch(t, mesh)
-                    for t in (sig_p, sig_n, sig_ce, p_prob, n_prob))
-                if neg_rank is not None:
-                    neg_rank = gather_batch(neg_rank, mesh)
-            n_prob_first = n_prob.reshape(-1, n)[:, 0] if n > 1 else n_prob
-            signals = StepSignals(
-                pce=sig_p,
-                nce=(sig_n if loss == "pair"
-                     else sig_n.reshape(-1, n).mean(dim=1)),
-                ce=sig_ce,
-                success=(p_prob > n_prob_first).float(),
-            )
-        curriculum = controller.update(state.curriculum, signals)
-        pair_acc = signals.success.mean()
-        metrics = {
-            "loss": main_loss,
-            "probs": pair_acc,
-            "p_true": p_prob.mean(),
-            **controller.metrics(curriculum),
-        }
-        if hasattr(controller, "success_rate"):
-            metrics["success_rate"] = controller.success_rate(curriculum,
-                                                              signals)
-        else:
-            metrics["success_rate"] = pair_acc
-        if neg_rank is not None:
-            metrics["neg_rank"] = neg_rank.mean()
-        if hasattr(controller, "meta_loss"):
-            metrics["meta_loss"] = controller.meta_loss(state.curriculum,
-                                                        signals)
-        new_state = state._replace(params=params, opt_state=opt_state,
-                                   curriculum=curriculum,
-                                   step=state.step + 1)
+        with span("pnt.step.curriculum"):
+            with torch.no_grad():
+                p_prob = relevance_probs(p_first, rel_id, nrel_id,
+                                         model_cfg.vocab_size)
+                n_prob = relevance_probs(n_first, rel_id, nrel_id,
+                                         model_cfg.vocab_size)
+                neg_rank = batch.get("neg_rank")
+                if mesh is not None:
+                    # the global batch's signals on every rank, in row order,
+                    # so that the ranks' curricula stay one
+                    sig_p, sig_n, sig_ce, p_prob, n_prob = (
+                        gather_batch(t, mesh)
+                        for t in (sig_p, sig_n, sig_ce, p_prob, n_prob))
+                    if neg_rank is not None:
+                        neg_rank = gather_batch(neg_rank, mesh)
+                n_prob_first = n_prob.reshape(-1, n)[:, 0] if n > 1 else n_prob
+                signals = StepSignals(
+                    pce=sig_p,
+                    nce=(sig_n if loss == "pair"
+                         else sig_n.reshape(-1, n).mean(dim=1)),
+                    ce=sig_ce,
+                    success=(p_prob > n_prob_first).float(),
+                )
+            curriculum = controller.update(state.curriculum, signals)
+            pair_acc = signals.success.mean()
+            metrics = {
+                "loss": main_loss,
+                "probs": pair_acc,
+                "p_true": p_prob.mean(),
+                **controller.metrics(curriculum),
+            }
+            if hasattr(controller, "success_rate"):
+                metrics["success_rate"] = controller.success_rate(curriculum,
+                                                                  signals)
+            else:
+                metrics["success_rate"] = pair_acc
+            if neg_rank is not None:
+                metrics["neg_rank"] = neg_rank.mean()
+            if hasattr(controller, "meta_loss"):
+                metrics["meta_loss"] = controller.meta_loss(state.curriculum,
+                                                            signals)
+            new_state = state._replace(params=params, opt_state=opt_state,
+                                       curriculum=curriculum,
+                                       step=state.step + 1)
         return new_state, metrics
 
     return step
@@ -365,15 +372,17 @@ def make_fused_step(corpus, step_fn, controller, loss: str = "pair",
 
     def fused(state: TrainState, pair_idx: torch.Tensor, corpus=None):
         corpus = default_corpus if corpus is None else corpus
-        difficulty = controller.difficulty(state.curriculum)
-        if loss == "lce":
-            rows = (None if current_mesh() is None
-                    else local_rows(torch.arange(pair_idx.shape[0])))
-            batch = corpus.lce_batch(state.generator, pair_idx, difficulty,
-                                     n, rows=rows)
-        else:
-            batch = corpus.pair_batch(local_rows(pair_idx), difficulty)
-        return step_fn(state, batch)
+        with span("pnt.step", state.step):
+            with span("pnt.step.sample"):
+                difficulty = controller.difficulty(state.curriculum)
+                if loss == "lce":
+                    rows = (None if current_mesh() is None
+                            else local_rows(torch.arange(pair_idx.shape[0])))
+                    batch = corpus.lce_batch(state.generator, pair_idx,
+                                             difficulty, n, rows=rows)
+                else:
+                    batch = corpus.pair_batch(local_rows(pair_idx), difficulty)
+            return step_fn(state, batch)
 
     return fused
 

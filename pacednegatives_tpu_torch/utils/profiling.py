@@ -6,15 +6,26 @@ TrainerMemoryTracker + total_flos accounting (utilities/trainer.py:113,
 707-715), and adds what the reference lacks: device traces and NaN
 checking. ``trace`` is ``torch.profiler``; ``cost_analysis`` counts the
 ``aten`` ops a call dispatches; ``debug_nans`` checks every op's output.
+
+``span`` and ``count`` are the port's own instruments, on only while a
+``torch.profiler`` records (``trace``, or any other profiler in its active
+phase; not in its warm-up): each layer opens ``pnt.<layer>.<part>`` spans,
+which lie in the device trace as ``record_function`` scopes and in
+``recorded()`` with their parents, ids and host times; ``host_sync`` marks
+each blocking device-to-host read, and each copy that waits on the stream,
+as a ``pnt.sync.<site>`` span and a ``host_syncs`` count. With no
+profiler recording, each costs one read of the profiler's flag.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -183,8 +194,112 @@ def debug_nans(enable: bool = True):
         yield
 
 
+# -- spans and counters -----------------------------------------------------
+
+_NULL = contextlib.nullcontext()
+_spans: list = []  # [name, parent record, id, start ns, end ns, child ns]
+_counts: dict[str, float] = {}
+_count_lock = threading.Lock()  # threads add to one counter
+_local = threading.local()  # .stack: the thread's open span records
+_clock = time.perf_counter_ns
+
+
+class _Span:
+    __slots__ = ("name", "id", "scope", "rec")
+
+    def __init__(self, name: str, id):
+        self.name, self.id = name, id
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent = stack[-1] if stack else None
+        sid = self.id if self.id is not None or parent is None else parent[2]
+        self.scope = torch.profiler.record_function(
+            self.name, None if self.id is None else str(self.id))
+        self.scope.__enter__()
+        self.rec = [self.name, parent, sid, _clock(), None, 0]
+        stack.append(self.rec)
+        _spans.append(self.rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec[4] = _clock()
+        _local.stack.pop()
+        if rec[1] is not None:
+            rec[1][5] += rec[4] - rec[3]
+        self.scope.__exit__(*exc)
+        return False
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records now (its active phase)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, id=None):
+    """A ``pnt.*`` span over the ``with`` block while a profiler records:
+    a ``record_function(name)`` scope (``id`` as its args) and a record of
+    its parent (the thread's innermost open span), its id (``id``, else
+    the parent's) and its host start and end. The shared null context
+    otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name, id)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _count_lock:
+            _counts[name] = _counts.get(name, 0) + n
+
+
+def host_sync(site: str, n: int = 1):
+    """Span ``pnt.sync.<site>`` around a statement that blocks the host on
+    the card: a read back to the host, or a copy from pageable host memory
+    that waits on the stream (``n`` of them); each adds to ``host_syncs``.
+    The site is counted on every device, so that a CPU run counts what a
+    card run would wait on."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    count("host_syncs", n)
+    return _Span("pnt.sync." + site, None)
+
+
+def recorded() -> dict:
+    """What the spans and counters recorded since the last ``reset``:
+    ``spans``, in the order they opened, each a dict of ``name``,
+    ``parent`` (the parent's index in the list, or None), ``id``,
+    ``start_ns`` / ``end_ns`` (``time.perf_counter_ns``; ``end_ns`` None
+    while open), ``dur_ns`` and ``self_ns`` (the duration less what its
+    children cover); and ``counts``."""
+    spans = list(_spans)
+    with _count_lock:
+        counts = dict(_counts)
+    index = {id(r): i for i, r in enumerate(spans)}
+    out = []
+    for name, parent, sid, t0, t1, child in spans:
+        dur = None if t1 is None else t1 - t0
+        up = None if parent is None else index.get(id(parent))
+        out.append({"name": name, "parent": up,
+                    "id": sid, "start_ns": t0, "end_ns": t1, "dur_ns": dur,
+                    "self_ns": None if dur is None else dur - child})
+    return {"spans": out, "counts": counts}
+
+
+def reset() -> None:
+    """Forget every recorded span and count."""
+    _spans.clear()
+    with _count_lock:
+        _counts.clear()
+
+
 class StepTimer:
-    """Simple-profiler-style aggregate timings (per section)."""
+    """Simple-profiler-style aggregate timings (per section); each section
+    is also a ``span`` of its name."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
@@ -194,7 +309,8 @@ class StepTimer:
     def section(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt

@@ -28,6 +28,14 @@ Phases, one JSON line each (any failure exits non-zero):
              call and back to back, with their host cost per call, and
              their dpos within the elementwise bound of
              ``dpos_error_bound``;
+   embed_grad - the embedding lookup's backward (E1, ``csrc/embed_grad.cu``)
+             at lce-b64's encoder lookup (512 x 188 ids, D 768) and
+             lce-b32's (256 x 188, D 1024), vocab 32,128, bf16, about half
+             the ids pad: each row within one bf16 ulp of its largest fp64
+             value, bitwise equal across two calls; the whole op (sort and
+             both passes), the plain version, aten's
+             ``embedding_dense_backward`` and the ``index_put_`` that
+             autograd through ``table[ids]`` ran, timed;
 4. slice   - monoT5 rerank at t5-base width (random weights from a seed,
              flash_v3 on, bf16) through ``Reranker.rerank``: unpacked, then
              packed with length buckets. Launch counts must equal the
@@ -247,6 +255,11 @@ from pacednegatives_tpu_torch.ops.flash import (
     flash_attention_backward_v2_plain,
     flash_attention_forward,
     flash_attention_forward_plain,
+)
+from pacednegatives_tpu_torch.ops.embedding import (
+    embedding_grad,
+    embedding_grad_plain,
+    embedding_lookup,
 )
 from pacednegatives_tpu_torch.ops.flash_v3 import (
     fused_self_attention,
@@ -1003,6 +1016,84 @@ def _sdpa_bwd_library(q, k, v, g, pos, km, dtype=torch.bfloat16,
                 "library_note": str(e).strip().splitlines()[0][:200]}
 
 
+# Phase 3b. The embedding lookup's backward at the training cells' encoder
+# lookups: (rows a step, D) at L 188 and vocab 32,128.
+EMBED_SHAPES = {"lce_b64_base": (512, 768), "lce_b32_large": (256, 1024)}
+EMBED_L, EMBED_VOCAB = 188, 32_128
+
+
+def _step_ids(g, B: int, L: int, V: int) -> torch.Tensor:
+    """A training step's ids: about half of each row pad id 0, four
+    template ids at the head of every row (runs of B), the rest uniform."""
+    ids = torch.randint(1, V, (B, L), generator=g, device="cuda")
+    ids[torch.rand((B, L), generator=g, device="cuda") < 0.5] = 0
+    ids[:, :4] = torch.arange(100, 104, device="cuda")
+    return ids
+
+
+def _row_ulps(got: torch.Tensor, ids: torch.Tensor, cot: torch.Tensor,
+              V: int) -> float:
+    """The largest row error of ``got`` against the fp64 sum, in bf16 ulps
+    of that row's largest exact value (0 for an exact zero row)."""
+    D = cot.shape[-1]
+    exact = torch.zeros((V, D), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, ids.reshape(-1), cot.reshape(-1, D).double())
+    _, e = torch.frexp(exact.abs().amax(dim=1))
+    ulp = torch.ldexp(torch.ones_like(exact[:, 0]), e - 1 - 7)
+    err = (got.double() - exact).abs().amax(dim=1)
+    return (err / ulp).max().item()
+
+
+def phase_embed_grad() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, (B, D) in EMBED_SHAPES.items():
+        V, N = EMBED_VOCAB, B * EMBED_L
+        ids = _step_ids(g, B, EMBED_L, V)
+        cot = _randn(g, B, EMBED_L, D)
+        before = embedding_lookup.launches
+        got = embedding_grad(cot, ids, V)
+        again = embedding_grad(cot, ids, V)
+        torch.cuda.synchronize()
+        assert embedding_lookup.launches == before + 2
+        if not torch.equal(got, again):
+            raise AssertionError(f"embed_grad {label}: two calls differ")
+        untouched = torch.bincount(ids.reshape(-1), minlength=V) == 0
+        if not (got[untouched] == 0).all():
+            raise AssertionError(f"embed_grad {label}: an untouched row")
+
+        def library():
+            return torch.ops.aten.embedding_dense_backward(
+                cot, ids, V, -1, False)
+
+        def index_put():
+            return torch.zeros((V, D), dtype=cot.dtype,
+                               device="cuda").index_put_(
+                (ids,), cot, accumulate=True)
+
+        r = check(f"embed_grad_{label}", _row_ulps(got, ids, cot, V), 1.0,
+                  unit="bf16 ulps of the row's largest value",
+                  shape=[N, D, V], pad_share=(ids == 0).float().mean().item(),
+                  bitwise_repeat=True,
+                  library_row_ulps=_row_ulps(library(), ids, cot, V),
+                  index_put_row_ulps=_row_ulps(index_put(), ids, cot, V))
+        op = lambda: embedding_grad(cot, ids, V)  # noqa: E731
+        r.update(
+            ms=time_ms(op), ms_back_to_back=time_ms_back_to_back(op),
+            host_us=_host_us(op),
+            plain_ms=time_ms(lambda: embedding_grad_plain(cot, ids, V)),
+            library_ms=time_ms(library),
+            library_ms_back_to_back=time_ms_back_to_back(library),
+            library_note="aten.embedding_dense_backward (the port never "
+                         "calls it)",
+            index_put_ms=time_ms(index_put, warmup=1, reps=5),
+            # g and the int64 ids read once, the table written once
+            **bound(N * D * 2 + N * 8 + V * D * 2, N * D, "fp32"))
+        emit("embed_grad", case=label, **r)
+        out[label] = r
+    return out
+
+
 def _check_k3(g, label, B, L) -> dict:
     """The fused block (K3: GEMM + ``t5_attention_fwd`` + GEMM) against
     ``fused_self_attention_plain``, T5-initialised weights and unit-scale
@@ -1427,7 +1518,11 @@ COUNTED = {
     "core_bwd_k2b": flash_attention_backward_v2,
     "mips_topk": mips_topk_pallas,
     "mips_topk_int8": mips_topk_pallas_quantized,
+    "embed_grad": embedding_lookup,
 }
+# E1 a forward and backward: the encoder's lookup and the decoder's, on
+# every attention route (the lookup has no plain route on the card)
+EMBED = 2
 
 
 def _launches() -> dict:
@@ -1552,7 +1647,8 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
     (``cfg_off``) on the same weights and batch (``pairs`` x (1 + ``n_neg``)
     rows). The first update runs at lr(0) = 0, so the AdamW first moment
     after it is 0.1 x the clipped gradient: compared leaf by leaf as
-    ||on - off|| / ||off||. The plain route must launch no kernel."""
+    ||on - off|| / ||off||. The plain route must launch no kernel but
+    the embedding's backward (E1), as often as the kernels' route."""
     loss_tol, grad_tol, grad_median_tol = tols
     tok, _, params, ctrl, batch = _step_env(cfg_on, max_d, pairs, n_neg,
                                             loss)
@@ -1584,7 +1680,8 @@ def _step_ab(case: str, cfg_on: t5.T5Config, cfg_off: t5.T5Config,
         expected_launches_kernels=want_on,
     )
     emit("train", **fields)
-    if not (used_on == want_on and used_off == _per_step()
+    if not (used_on == want_on
+            and used_off == _per_step(embed_grad=want_on["embed_grad"])
             and loss_rel <= loss_tol and rel[worst] <= grad_tol
             and fields["grad_rel_l2_median"] <= grad_median_tol):
         raise AssertionError(f"step 1 {case}: {fields}")
@@ -1707,7 +1804,7 @@ def phase_train(smi: str, run_dir: str) -> dict:
     # per step: K3 forward and K4 backward once per encoder layer; GEMMs:
     # the forward's two projections and the backward's qkv recompute
     per_step = _per_step(attention=layers, attention_bwd=layers,
-                         gemm=3 * layers)
+                         gemm=3 * layers, embed_grad=EMBED)
     # the run directory stays for phase 8's evaluation, its HF export for
     # phase 10
     run = _train_run(smi, "cli.train.main", dict(TRAIN_PRESET,
@@ -1722,14 +1819,14 @@ def phase_train(smi: str, run_dir: str) -> dict:
     # save, as JAX saves no pallas_call output. A step: K3's core twice
     # and K4 once per encoder layer; GEMMs 2 + 2 + 1 per layer.
     per_step_remat = _per_step(attention=2 * layers, attention_bwd=layers,
-                               gemm=5 * layers)
+                               gemm=5 * layers, embed_grad=EMBED)
     default = _train_run(smi, "default_runconfig_dots_nobatch",
                          DEFAULT_PRESET, per_step_remat)
     remat = _remat_ab(smi, "L188", _train_cfg(True), 160, B_TRAIN,
                       N_NEG_TRAIN, REMAT_POLICIES, per_step, per_step_remat)
-    # dense attention: no kernel runs
+    # dense attention: no attention kernel runs
     dropout = _train_run(smi, "dropout_multisteps", DROPOUT_PRESET,
-                         _per_step())
+                         _per_step(embed_grad=EMBED))
     return {"run": run, "step1": step1, "default": default, "remat": remat,
             "dropout": dropout}
 
@@ -1745,7 +1842,8 @@ def phase_chunked(smi: str) -> dict:
     # microbatch; the decoder's attention (Lq = label length) is not
     # 128-aligned and takes the plain route
     per_step = _per_step(attention=layers * MB512,
-                         core_bwd_k2b=layers * MB512)
+                         core_bwd_k2b=layers * MB512,
+                         embed_grad=EMBED * MB512)
     run = _train_run(smi, "chunked_512", CHUNKED_PRESET, per_step)
     step1 = _step_ab("step1_chunked_kernels_vs_plain", _chunked_cfg(True),
                      _chunked_cfg(False), 484, per_step,
@@ -1757,12 +1855,14 @@ def phase_chunked(smi: str) -> dict:
     remat = _remat_ab(smi, "chunked512", _chunked_cfg(True), 484, B512,
                       N512, ("dots_nobatch",), per_step,
                       _per_step(attention=2 * layers * MB512,
-                                core_bwd_k2b=layers * MB512),
+                                core_bwd_k2b=layers * MB512,
+                                embed_grad=EMBED * MB512),
                       fwd_bwd=False, microbatches=MB512,
                       grad_accum_dtype="bf16")
     # L 768: K2a (the resident estimate fails the 48 MiB gate), one
     # microbatch: K1 and K2a once per encoder layer a step, K2b never
-    per_step768 = _per_step(attention=layers, core_bwd_k2a=layers)
+    per_step768 = _per_step(attention=layers, core_bwd_k2a=layers,
+                            embed_grad=EMBED)
     k2a = _train_run(smi, "chunked_768_k2a", K2A_PRESET, per_step768)
     step768 = _step_ab(
         "step1_chunked_768_k2a_vs_plain",
@@ -1791,7 +1891,8 @@ def phase_fused512(smi: str) -> dict:
     # per step: K3 and K4 once per encoder layer per microbatch; GEMMs
     # 3 per call pair; the decoder's attention takes the plain route
     per_step = _per_step(attention=layers * MB512, attention_bwd=layers
-                         * MB512, gemm=3 * layers * MB512)
+                         * MB512, gemm=3 * layers * MB512,
+                         embed_grad=EMBED * MB512)
     emit("fused512", config="t5-base", flash_v3=True, fused_qkv=True,
          attention_impl="chunked", attention_chunk=512, flash_kernel=False,
          attn_residual_dtype="bf16", grad_accum_dtype="bf16",
@@ -2031,7 +2132,8 @@ def phase_dense(smi: str) -> dict:
     # of L 160 in 128 batches of 128: one K3 per layer per batch, 12 x 128
     # = 1,536 attention and 3,072 GEMM launches.
     per_step = _per_step(attention=layers, attention_bwd=layers,
-                         gemm=3 * layers, mips_topk_int8=1)
+                         gemm=3 * layers, mips_topk_int8=1,
+                         embed_grad=EMBED)
     batches = -(-K6_ONLINE[1] // 128)
     refreshes = 2
     once = {"attention": refreshes * layers * batches,
@@ -2642,13 +2744,18 @@ def phase_curricula(smi: str) -> dict:
          steps=CURRICULUM_STEPS, cases=CURRICULUM_CASES)
     # the pair step: K3 and K4 once per encoder layer; GEMMs 2 + 1 a layer
     pair = _per_step(attention=layers, attention_bwd=layers,
-                     gemm=3 * layers)
-    # meta-cheap: four forwards (K3 4 x 12), two backwards (K4 2 x 12)
+                     gemm=3 * layers, embed_grad=EMBED)
+    # meta-cheap: four forwards (K3 4 x 12), two backwards (K4 2 x 12; E1
+    # for pos and for neg)
     cheap = _per_step(attention=4 * layers, attention_bwd=2 * layers,
-                      gemm=8 * layers + 2 * layers)
+                      gemm=8 * layers + 2 * layers, embed_grad=2 * EMBED)
+    # meta-std, dense: E1 for pos and for neg in each of its three
+    # backwards (the inner gradient, the outer one through the virtual
+    # step, the main step's)
+    std = _per_step(embed_grad=3 * 2 * EMBED)
     runs = {name: _curriculum_run(smi, name, per) for name, per in (
         ("interp", pair), ("level", pair), ("eta", pair),
-        ("contrast", pair), ("meta-cheap", cheap), ("meta-std", _per_step()))}
+        ("contrast", pair), ("meta-cheap", cheap), ("meta-std", std))}
     step1 = _step_ab("step1_pair_flash_v3_vs_dense", _train_cfg(True),
                      _train_cfg(False), 160, pair,
                      (STEP_LOSS_RTOL, STEP_GRAD_REL_L2,
@@ -2662,14 +2769,14 @@ def phase_curricula(smi: str) -> dict:
     # call: K3 / K4 against the dense route
     cheap_ab = _meta_ab(smi, "meta_cheap_flash_v3_vs_dense", "cheap",
                         _train_cfg(True), _train_cfg(False), cheap,
-                        _per_step())
+                        _per_step(embed_grad=cheap["embed_grad"]))
     # meta-std under RunConfig's default remat (the selective checkpoint
     # saving the projections' products) against remat off, dense
     std_remat = _meta_ab(
         smi, "meta_std_dots_nobatch_vs_remat_off", "std",
         dataclasses.replace(_train_cfg(False), remat=True,
                             remat_policy="dots_nobatch"),
-        _train_cfg(False), _per_step(), _per_step())
+        _train_cfg(False), std, std)
     fd = _meta_std_fd_check(smi)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in COUNTED}
@@ -2726,10 +2833,11 @@ def _scored_per_step(layers: int, scoring_chunks: int = 1,
     """Launches of one scored-pool step on the kernels' route: each scoring
     chunk K3 once per encoder layer (GEMM 2 a layer: q|k|v concatenated at
     its use), each microbatch K3 and K4 once per encoder layer (GEMM 3 a
-    layer); the decoder's attention takes the plain route."""
+    layer, E1 2 times); the decoder's attention takes the plain route."""
     return _per_step(attention=layers * (scoring_chunks + microbatches),
                      attention_bwd=layers * microbatches,
-                     gemm=layers * (2 * scoring_chunks + 3 * microbatches))
+                     gemm=layers * (2 * scoring_chunks + 3 * microbatches),
+                     embed_grad=EMBED * microbatches)
 
 
 def _scored_cli(smi: str, layers: int) -> dict:
@@ -3022,12 +3130,14 @@ def _ref_varlen(smi: str, tok, corpus, store, triples, params) -> dict:
     torch.cuda.synchronize()
     sps = REF_STEPS / (time.perf_counter() - t0)
     launches = _launches()
+    # E1 for pos and for neg in each step's backward, the warm-up's too
+    want = _per_step(embed_grad=2 * EMBED * (REF_STEPS + 1))
     fields = dict(case="ref_varlen", steps=REF_STEPS, losses=[first, *losses],
                   steps_per_s=sps, neg_scored_per_s=sps * B * n,
                   prompt_len=L, launches=launches,
-                  expected_launches=_per_step(), nvidia_smi=smi)
+                  expected_launches=want, nvidia_smi=smi)
     emit("scored", **fields)
-    if launches != _per_step() or not np.isfinite(fields["losses"]).all():
+    if launches != want or not np.isfinite(fields["losses"]).all():
         raise AssertionError(f"ref_varlen: {fields}")
     return fields
 
@@ -3047,7 +3157,8 @@ def _fused_scored(smi: str, layers: int) -> dict:
                             "cuda")
     env = (tok, dc, params)
     chunks = B_TRAIN * FS_C // FS_CHUNK
-    plain = _fused_scored_run(smi, "fused_scored", False, env, _per_step())
+    plain = _fused_scored_run(smi, "fused_scored", False, env,
+                              _per_step(embed_grad=EMBED * FS_MB))
     kern = _fused_scored_run(smi, "fused_scored_flash_v3", True, env,
                              _scored_per_step(layers, chunks, FS_MB))
     ref = _ref_varlen(smi, tok, corpus, store, triples, params)
@@ -3091,7 +3202,8 @@ def _hf_and_splade(smi: str, layers: int, run_dir: str) -> dict:
                         dict(TRAIN_PRESET, model=export,
                              total_steps=B_TRAIN * 2),
                         _per_step(attention=layers, attention_bwd=layers,
-                                  gemm=3 * layers), init=read, phase="scored")
+                                  gemm=3 * layers, embed_grad=EMBED),
+                        init=read, phase="scored")
     ce_scale = [r["ce_scale"] for r in hf_run["rows"] if "ce_scale" in r]
     emit("scored", case="from_hf_export", ce_scale=ce_scale)
     if ce_scale != [1.0]:
@@ -3289,7 +3401,7 @@ def _timed_distill_steps(times: list, losses: list, shapes: list):
 def _distill_cli(smi: str, files: dict, objective: str, steps: int,
                  tmp: str) -> dict:
     """``cli.distill.main`` at t5-base on the card, counted: no hand kernel
-    (its config is dense with remat ``dots``), finite losses, every weight
+    but E1 (its config is dense with remat ``dots``), finite losses, every weight
     moved from the CLI's seed-0 initialisation but those MarginMSE leaves
     no gradient."""
     out = os.path.join(tmp, f"distill_{objective}")
@@ -3333,7 +3445,7 @@ def _distill_cli(smi: str, files: dict, objective: str, steps: int,
     if not (summary["steps"] == steps == len(losses)
             and set(shapes) == {(2 * DISTILL_BATCH, shapes[0][1])}
             and np.isfinite(losses).all() and unchanged == frozen
-            and launches == _per_step()):
+            and launches == _per_step(embed_grad=EMBED * steps)):
         raise AssertionError(f"distill cli {objective}: {fields}")
     return fields
 
@@ -3389,8 +3501,8 @@ def _distill_ab(smi: str, params: dict, batch: dict, tok, per_step: dict
             launches={label: r[2] for label, r in runs.items()},
             expected_launches_kernels=per_step, nvidia_smi=smi)
         ok = (runs["kernels"][2] == per_step and loss_rel <= STEP_LOSS_RTOL
-              and all(r[2] == _per_step() for label, r in runs.items()
-                      if label != "kernels"))
+              and all(r[2] == _per_step(embed_grad=EMBED)
+                      for label, r in runs.items() if label != "kernels"))
         if objective == "ce":
             fields.update(grad_tol=STEP_GRAD_REL_L2,
                           grad_median_tol=STEP_GRAD_REL_L2_MEDIAN)
@@ -3510,7 +3622,7 @@ def phase_distill(smi: str) -> dict:
     # the distill step with flash_v3: K3 and K4 once per encoder layer;
     # GEMMs 2 + 1 a layer
     per_step = _per_step(attention=layers, attention_bwd=layers,
-                         gemm=3 * layers)
+                         gemm=3 * layers, embed_grad=EMBED)
     with tempfile.TemporaryDirectory() as tmp:
         mined = _distill_files(tmp)
         files = mined.pop("files")
@@ -3755,9 +3867,10 @@ def _spawn_ranks(work: str, backend: str, worlds: list,
 
 def _check_ranks(smi: str, label: str, ranks: list[dict]) -> dict:
     """(b) / (d): each case within phase 5's gates of one process, the same
-    state on every rank, K3 = K4 = 12 (GEMM 36) on every rank, the 2-shard
-    K6 top-k one process's up to near-tie swaps."""
-    per_step = _per_step(attention=12, attention_bwd=12, gemm=36)
+    state on every rank, K3 = K4 = 12 (GEMM 36, E1 2) on every rank, the
+    2-shard K6 top-k one process's up to near-tie swaps."""
+    per_step = _per_step(attention=12, attention_bwd=12, gemm=36,
+                         embed_grad=EMBED)
     fields = {"case": label, "nvidia_smi": smi}
     ok = True
     for case in ("dp2_seq2_negative_parallel", "dp2"):
@@ -3932,7 +4045,8 @@ def _overlap_phase(smi: str, tmp: str) -> dict:
         # a window of steps beside one refresh, against the steps then the
         # refresh; steps counted while the refresh thread still launched
         per_step = _per_step(attention=layers, attention_bwd=layers,
-                             gemm=3 * layers, mips_topk_int8=1)
+                             gemm=3 * layers, mips_topk_int8=1,
+                             embed_grad=EMBED)
         idx = [torch.from_numpy(i.astype(np.int64)).cuda() for i, _ in zip(
             pair_index_stream(dc.num_pairs, B_TRAIN, 0),
             range(OVERLAP_WINDOW_STEPS))]
@@ -4019,7 +4133,8 @@ def _world1_phase(smi: str, tmp: str) -> dict:
         backend = torch.distributed.get_backend()
     finally:
         torch.distributed.destroy_process_group()
-    want = _per_step(attention=12, attention_bwd=12, gemm=36)
+    want = _per_step(attention=12, attention_bwd=12, gemm=36,
+                     embed_grad=EMBED)
     fields = dict(case="nccl_world1", backend=backend, **step,
                   launches=used, expected_launches=want,
                   index_bitwise=index_bitwise, index_launches=index_used,
@@ -4252,9 +4367,9 @@ def _tensor_rank(work: str, rank: int, backend: str, worlds: list) -> None:
 def _check_tensor(smi: str, label: str, ranks: list[dict]) -> dict:
     """Each case against the one process (phase 5's gates: step 1's loss
     and per-leaf gradients; step 2's loss), the same state on every rank,
-    K1 = K2b = 12 a step a rank (K6 once in the online step), every weight
-    moved."""
-    per_step = _per_step(attention=12, core_bwd_k2b=12)
+    K1 = K2b = 12 and E1 2 a step a rank (K6 once in the online step),
+    every weight moved."""
+    per_step = _per_step(attention=12, core_bwd_k2b=12, embed_grad=EMBED)
     fields = {"case": label, "nvidia_smi": smi}
     ok = True
     r0 = ranks[0]
@@ -4282,7 +4397,8 @@ def _check_tensor(smi: str, label: str, ranks: list[dict]) -> dict:
     if "online_dp2_tp2" in r0:
         held = [r["online_dp2_tp2"] for r in ranks]
         on = r0["online_dp2_tp2"]
-        want = _per_step(attention=12, core_bwd_k2b=12, mips_topk_int8=1)
+        want = _per_step(attention=12, core_bwd_k2b=12, mips_topk_int8=1,
+                         embed_grad=EMBED)
         fields["online_dp2_tp2"] = {
             **{k: on[k] for k in ("loss", "loss_one_process", "loss_rel_err",
                                   "launches_one_process",
@@ -4365,12 +4481,13 @@ def phase_tensor(smi: str) -> dict:
             "seconds": seconds}
 
 
-def _entry(name: str, source: str, replaces: str, launches: int, r: dict,
-           **extra) -> dict:
-    """One kernel of the final line, from its phase-3 or phase-7 check."""
+def _entry(name: str, source: str, replaces: str | None, launches: int,
+           r: dict, **extra) -> dict:
+    """One kernel of the final line, from its phase-3 or phase-7 check;
+    ``replaces`` None for a kernel that no TPU kernel stands behind."""
     return {"name": name, "route": "cuda",
             "source": "pacednegatives_tpu_torch/csrc/" + source,
-            "replaces": "pacednegatives_tpu/" + replaces,
+            "replaces": replaces and "pacednegatives_tpu/" + replaces,
             "launches": launches,
             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
@@ -4401,6 +4518,7 @@ def main() -> int:
     device, smi = phase_device()
     phase_build()
     k = phase_kernels()
+    eg = phase_embed_grad()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             s = phase_slice()
@@ -4483,6 +4601,14 @@ def main() -> int:
         _entry("mips_topk_int8", "mips_topk.cu", "ops/mips.py:186",
                total["mips_topk_int8"], dk["k6_msmarco"],
                online_shape=dk["k6_online"]),
+        _entry("embed_grad", "embed_grad.cu", None, total["embed_grad"],
+               eg["lce_b64_base"],
+               replaces_note="no TPU kernel: pacednegatives_tpu/models/"
+                             "t5.py:1368's emb[input_ids] is an XLA gather",
+               **{key: eg["lce_b64_base"][key] for key in (
+                   "unit", "pad_share", "bitwise_repeat", "library_row_ulps",
+                   "index_put_ms", "index_put_row_ulps")},
+               lce_b32_large=eg["lce_b32_large"]),
     ], "launches_by_path": paths,
         "docs_per_s": {"unpacked": s["unpacked"]["docs_per_s"],
                        "packed_bucketed": s["packed"]["docs_per_s"]},

@@ -26,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu",
-           "t5_attention_bwd_fp32.cu", "mips_topk.cu")
+           "t5_attention_bwd_fp32.cu", "mips_topk.cu", "embed_grad.cu")
 HEADERS = ("hopper_pipeline.cuh", "t5_attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,6 +74,11 @@ _SIGNATURES = {
                            _I, _I, _I, _P),
     # keys, values, indices, n, device, stream
     "pnt_mips_unpack_keys": (_P, _P, _P, _LL, _I, _P),
+    # g, ids, ids' bytes (4 or 8), out, scratch, n, d, vocab, dtype (0
+    # bf16, 1 fp32), vec, device, stream
+    "pnt_embed_grad": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # n, d, vocab, &bytes: its scratch bytes
+    "pnt_embed_grad_scratch": (_I, _I, _I, ctypes.POINTER(_LL)),
 }
 
 

@@ -67,6 +67,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from pacednegatives_tpu_torch.ops.embedding import embedding_lookup
 from pacednegatives_tpu_torch.ops.flash import (
     flash_attention_backward,
     flash_attention_backward_v2,
@@ -898,16 +899,17 @@ def mlp(p: dict, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(table: torch.Tensor, ids: torch.Tensor,
                  cfg: T5Config) -> torch.Tensor:
-    """``table[ids]``: the rows of a (vocab, D) embedding table. A rank
-    holding vocab / model rows of it looks up the ids in its range, zeroes
-    the others' rows and sums over the model group (one nonzero term: the
-    exact row); the gradient reaches only its own rows."""
+    """``table[ids]``: the rows of a (vocab, D) embedding table, through
+    ``ops.embedding.embedding_lookup`` (its backward a segmented sum). A
+    rank holding vocab / model rows of it looks up the ids in its range,
+    zeroes the others' rows and sums over the model group (one nonzero
+    term: the exact row); the gradient reaches only its own rows."""
     tp = model_split(table.shape[0], cfg.vocab_size)
     if tp is None:
-        return table[ids.long()]
+        return embedding_lookup(table, ids)
     local = ids.long() - tp.model_rank * table.shape[0]
     inside = (local >= 0) & (local < table.shape[0])
-    rows = table[torch.where(inside, local, 0)]
+    rows = embedding_lookup(table, torch.where(inside, local, 0))
     zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
     return reduce_from_model(torch.where(inside[..., None], rows, zero), tp)
 

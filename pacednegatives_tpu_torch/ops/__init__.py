@@ -8,6 +8,8 @@
   (K4), built from both, with its autograd Function;
 - ``mips``: blockwise MIPS top-k over fp32 / bf16 docs (K5) and an int8
   index (K6), ``csrc/mips_topk.cu``, and the exact and streaming paths;
+- ``embedding``: the embedding lookup, its backward a segmented sum on the
+  card (E1, ``csrc/embed_grad.cu``);
 - ``losses`` and ``sampling``: the training losses and the paced negative
   sampler (plain PyTorch, as the JAX package leaves them to XLA).
 """

@@ -28,7 +28,8 @@ from pacednegatives_tpu_torch.distill.train import (
 from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.models import t5
 from pacednegatives_tpu_torch.models import quant
-from pacednegatives_tpu_torch.ops import flash, flash_v3, gemm, mips
+from pacednegatives_tpu_torch.ops import embedding, flash, flash_v3, gemm, mips
+from pacednegatives_tpu_torch.utils import profiling
 from pacednegatives_tpu_torch.train import (
     init_train_state,
     make_optimizer,
@@ -440,10 +441,13 @@ def test_train_step_kernels_match_dense(cuda):
                                tx, loss="lce", n_neg_per_example=3,
                                rel_id=tok.true_id, nrel_id=tok.false_id)
         before = flash.attention_backward.launches
+        before_embed = embedding.embedding_lookup.launches
         state, metrics = step(init_train_state(params, tx, ctrl.init("cuda")),
                               batch)
         torch.cuda.synchronize()
         assert flash.attention_backward.launches - before == (2 if v3 else 0)
+        # the encoder's lookup and the decoder's, on either route
+        assert embedding.embedding_lookup.launches - before_embed == 2
         out.append((metrics["loss"].item(), t5.flatten_params(
             state.opt_state.mu)))
     (l_on, mu_on), (l_off, mu_off) = out
@@ -1098,3 +1102,120 @@ def test_side_stream_refresh_reads_the_trigger_params(cuda):
         ref.close()
     assert torch.equal(got, want)
     assert not torch.equal(got, make_refresh_fn(dc, cfg, mining)(params))
+
+
+def _step_ids(g, B, L, V, dtype=torch.int64):
+    """A training step's ids: about half of each row pad id 0, four
+    template ids at the head of every row (runs of B), the rest uniform."""
+    ids = torch.randint(1, V, (B, L), generator=g, device="cuda")
+    ids[torch.rand((B, L), generator=g, device="cuda") < 0.5] = 0
+    ids[:, :4] = torch.arange(100, 104, device="cuda")
+    return ids.to(dtype)
+
+
+def _assert_within_a_row_ulp(got, ids, cot, V):
+    """Each row within one ulp (in got's dtype) of its largest exact value,
+    against an fp64 index_add_; untouched rows exactly zero. In fp32, whose
+    ulp lies below an fp32 sum's order error, plus that error's bound."""
+    D = cot.shape[-1]
+    flat = ids.reshape(-1).long()
+    exact = torch.zeros((V, D), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, flat, cot.reshape(-1, D).double())
+    mant = {torch.bfloat16: 7, torch.float32: 23}[got.dtype]
+    _, e = torch.frexp(exact.abs().amax(dim=1))
+    tol = torch.ldexp(torch.ones_like(exact[:, 0]), e - 1 - mant)
+    count = torch.bincount(flat, minlength=V)
+    if got.dtype == torch.float32:
+        abs_sum = torch.zeros_like(exact).index_add_(
+            0, flat, cot.reshape(-1, D).double().abs())
+        tol = tol + count * 2.0**-24 * abs_sum.amax(dim=1)
+    err = (got.double() - exact).abs().amax(dim=1)
+    assert (err <= tol).all(), (err - tol).max().item()
+    assert (got[count == 0] == 0).all()
+
+
+@pytest.mark.parametrize("N,D", [(96_256, 768), (48_128, 1024)])
+def test_embed_grad_at_the_training_shapes(cuda, N, D):
+    """lce-b64's encoder lookup (512 x 188 ids, t5-base) and lce-b32's (256
+    x 188, t5-large), bf16: one ulp of each row's largest value of the fp64
+    sum, bitwise equal across two calls, no host sync, and counted."""
+    V = 32_128
+    ids = _step_ids(cuda, N // 188, 188, V)
+    cot = _randn(cuda, N // 188, 188, D)
+    before = embedding.embedding_lookup.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = embedding.embedding_grad(cot, ids, V)
+        again = embedding.embedding_grad(cot, ids, V)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert embedding.embedding_lookup.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_within_a_row_ulp(got, ids, cot, V)
+
+
+@pytest.mark.parametrize("N,D,V,dtype", [
+    (0, 64, 50, torch.bfloat16),          # no ids: all zeros
+    (1, 64, 50, torch.bfloat16),
+    (700, 100, 300, torch.bfloat16),      # D * 2 bytes not a multiple of 16
+    (700, 72, 300, torch.float32),        # fp32's 16-byte path
+    (3000, 768, 40, torch.float32),       # long runs over many tiles
+    (513, 33, 7, torch.float32),          # scalar path, runs over tiles
+    (5000, 1104, 20, torch.bfloat16),     # D beyond a pass-2 chunk
+])
+def test_embed_grad_ragged(cuda, N, D, V, dtype):
+    ids = torch.randint(0, V, (N,), generator=cuda, device="cuda")
+    ids[: N // 3] = V // 2
+    ids = ids[torch.randperm(N, generator=cuda, device="cuda")]
+    cot = torch.randn((N, D), generator=cuda, device="cuda").to(dtype)
+    got = embedding.embedding_grad(cot, ids.int(), V)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (V, D)
+    _assert_within_a_row_ulp(got, ids, cot, V)
+    assert torch.equal(got, embedding.embedding_grad(cot, ids, V))
+
+
+def test_embed_grad_autograd_and_counter(cuda):
+    """The lookup's backward on the card and the gradient of its gradient
+    (create_graph) against indexing's: the kernel runs in the first
+    backward and again in the second (the cotangent depends on the
+    table), each launch counted, and in ``embed.grad`` while a profiler
+    records."""
+    V, D = 500, 64
+    ids = _step_ids(cuda, 8, 40, V)
+    table = torch.randn((V, D), generator=cuda, device="cuda")
+    w = torch.randn((8, 40, D), generator=cuda, device="cuda")
+    before = embedding.embedding_lookup.launches
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        t = table.clone().requires_grad_(True)
+        loss = (embedding.embedding_lookup(t, ids) ** 2 * w).sum()
+        (gt,) = torch.autograd.grad(loss, t, create_graph=True)
+        gt.sum().backward()
+    assert embedding.embedding_lookup.launches == before + 2
+    assert profiling.recorded()["counts"]["embed.grad"] == 2
+    t2 = table.clone().requires_grad_(True)
+    (gt2,) = torch.autograd.grad((t2[ids] ** 2 * w).sum(), t2,
+                                 create_graph=True)
+    gt2.sum().backward()
+    assert torch.allclose(gt, gt2, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(t.grad, t2.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_embed_grad_raises_on_what_it_cannot_take(cuda):
+    ids = torch.zeros((4, 8), dtype=torch.int64, device="cuda")
+    g = torch.randn((4, 8, 16), generator=cuda, device="cuda")
+    with pytest.raises(TypeError):
+        embedding.embedding_grad(g.double(), ids, 10)
+    with pytest.raises(TypeError):
+        embedding.embedding_grad(g.half(), ids, 10)
+    with pytest.raises(TypeError):
+        embedding.embedding_grad(g, ids.float(), 10)
+    with pytest.raises(ValueError):
+        embedding.embedding_grad(g.transpose(0, 1), ids.t(), 10)
+    with pytest.raises(ValueError):
+        embedding.embedding_grad(g, ids.cpu(), 10)
+    with pytest.raises(ValueError):
+        embedding.embedding_grad(g[:, :4], ids, 10)

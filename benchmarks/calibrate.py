@@ -44,11 +44,12 @@ def main() -> int:
 
     spec = harness.resolve(harness.ROOT, args.workload)
     driver = harness.load_module(spec.driver, spec.traffic["driver"])
+    arch = harness.load_module(spec.arch, spec.arch.stem)
     seeds = lambda s: [int(x) for x in s.split(",") if x]
     out = open(args.out, "a") if args.out else None
 
     def cell(seed, traffic=None, fault=None):
-        return Cell(workload=args.workload, config=spec.config,
+        return Cell(workload=args.workload, config=spec.config, arch=arch,
                     traffic=traffic or spec.traffic, limits=spec.limits,
                     seed=seed, seconds=args.seconds, trace=False,
                     device=torch.device("cuda", 0),

@@ -3,7 +3,8 @@
 A driver (``benchmarks/drivers/<name>.py``, named by the traffic file's
 ``driver``) has ``run(cell: Cell) -> Outcome``. It builds the program's
 objects from the configuration and the traffic mix, warms up, measures,
-and checks the timed path's outputs against the plain reference.
+and checks the timed path's outputs against the plain reference. It
+reaches the model's architecture only through ``cell.arch``'s hooks.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from benchmarks.common.tracing import Counters
 class Cell:
     workload: str
     config: dict  # benchmarks/configs/<config>.json
+    arch: Any  # benchmarks/arch/<architectures[0]>.py: the model's hooks
     traffic: dict  # benchmarks/traffic/<traffic>.json
     limits: dict  # benchmarks/limits/<workload>.json: {number: limit}
     seed: int

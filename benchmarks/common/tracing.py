@@ -2,13 +2,17 @@
 program's calls, a profiler over a bounded sub-window, and the reduction
 of its trace to device time by span, busy and idle time, and a breakdown.
 
-Spans are ``torch.profiler.record_function`` scopes named ``bench.*``. A
-kernel belongs to a span when the host call that launched it (the runtime
-launch its correlation id names, or else the host op its external id
-names) lies inside the span on the same thread. The backward of the
-encoder's self-attention is the autograd engine's own scope for the
-block's Function, ``autograd::engine::evaluate_function:
-FusedSelfAttentionBackward``.
+Spans are ``torch.profiler.record_function`` scopes: the benchmark's
+own, named ``bench.*``, and the port's, named ``pnt.*``
+(``utils/profiling.py``'s ``span``). A kernel belongs to a span when the
+host call that launched it (the runtime launch its correlation id names,
+or else the host op its external id names) lies inside the span on the
+same thread; it counts under every such span, so nested spans count
+inclusively, and a name's nested spans count it once. A span opened on
+the autograd engine's thread (inside a Function's ``backward``) collects
+what that thread launches; the backward of the encoder's self-attention
+is the engine's own scope for the block's Function,
+``autograd::engine::evaluate_function: FusedSelfAttentionBackward``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
 ATTN_BWD_SCOPE = ("autograd::engine::evaluate_function: "
                   "FusedSelfAttentionBackward")
+# the spans that collect device time besides ATTN_BWD_SCOPE
+SPAN_PREFIXES = ("bench.", "pnt.")
 # scopes that are no host work of their own: the benchmark's spans and the
 # profiler's step marker
 NOT_HOST_WORK = ("bench.", "ProfilerStep#")
@@ -194,24 +200,20 @@ def reduce(events: list) -> dict:
         elif "External id" in args:
             by_ext.setdefault(args["External id"], e)
 
-    # span intervals per thread, by name
-    scopes: dict[tuple, list] = {}
+    # {thread: {span name: (starts, ends)}} of the merged intervals
+    scopes: dict = {}
     for e in host:
         name = e.get("name", "")
-        if name.startswith("bench.") or name == ATTN_BWD_SCOPE:
-            scopes.setdefault((e["tid"], name), []).append(
+        if name.startswith(SPAN_PREFIXES) or name == ATTN_BWD_SCOPE:
+            scopes.setdefault(e["tid"], {}).setdefault(name, []).append(
                 (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    for v in scopes.values():
-        v.sort()
+    for by_name in scopes.values():
+        for name, ivs in by_name.items():
+            merged = _union(ivs)
+            by_name[name] = ([s for s, _ in merged], [e for _, e in merged])
 
-    def inside(tid, name, t):
-        ivs = scopes.get((tid, name))
-        if not ivs:
-            return False
-        i = bisect.bisect_right(ivs, (t, float("inf"))) - 1
-        return i >= 0 and ivs[i][0] <= t <= ivs[i][1]
-
-    span_names = sorted({name for _, name in scopes})
+    span_names = sorted({name for by_name in scopes.values()
+                         for name in by_name})
     span_device_s = {name: 0.0 for name in span_names}
     unattributed = 0
     kernel_s: dict[str, float] = {}
@@ -231,8 +233,9 @@ def reduce(events: list) -> dict:
             unattributed += 1
             continue
         t = float(src["ts"])
-        for name in span_names:
-            if inside(src["tid"], name, t):
+        for name, (starts, ends) in scopes.get(src["tid"], {}).items():
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= ends[i]:
                 span_device_s[name] += d / 1e6
     busy = _union(intervals)
     busy_s = sum(e - s for s, e in busy) / 1e6

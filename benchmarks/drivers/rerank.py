@@ -23,14 +23,9 @@ import torch
 
 from benchmarks.common import data, tracing
 from benchmarks.common.cell import Cell, Outcome
-from benchmarks.common.inputs import (
-    make_corpus,
-    model_dict,
-    port_model_config,
-)
-from benchmarks.common.weights import make_t5_weights, nest
+from benchmarks.common.inputs import make_corpus
+from benchmarks.common.weights import nest
 from benchmarks.reference.lce import prompts
-from benchmarks.reference.t5 import Model
 
 
 def requests(seed: int, nq: int, nd: int, depth: int):
@@ -78,9 +73,9 @@ def build(cell: Cell, corpus: dict, int8: bool = False):
     text = TextCorpus([f"d{i}" for i in range(tr["docs"])], [""] * tr["docs"],
                       [f"q{i}" for i in range(tr["queries"])],
                       [""] * tr["queries"])
-    params = nest(make_t5_weights(cell.config, cell.seed, cell.device))
+    params = nest(cell.arch.weights(cell.config, cell.seed, cell.device))
     reranker = Recording(
-        params=params, cfg=port_model_config(cell.config, remat=False),
+        params=params, cfg=cell.arch.port_config(cell.config, remat=False),
         store=store, corpus=text, rel_id=tok["true"], nrel_id=tok["false"],
         batch_size=tr["block"], packed=tr["packed"],
         bucket_lens=tuple(tr["buckets"]), int8=int8, device=cell.device)
@@ -186,9 +181,9 @@ def control(cell: Cell) -> dict:
     operands) serving the first requests in the program's place."""
     tok, tr = cell.config["tokens"], cell.traffic
     corpus = make_corpus(cell.config, tr, cell.seed, cell.device)
-    model = Model(model_dict(cell.config),
-                  make_t5_weights(cell.config, cell.seed, cell.device),
-                  precision="fp8")
+    model = cell.arch.reference(
+        cell.config, cell.arch.weights(cell.config, cell.seed, cell.device),
+        precision="fp8")
     stream = requests(cell.seed, tr["queries"], tr["docs"], tr["depth"])
     done = []
     for _ in range(tr["check_requests"]):
@@ -218,8 +213,8 @@ def check(cell: Cell, corpus: dict, done: list) -> dict:
     random model's scores differ little from document to document)."""
     tok = cell.config["tokens"]
     dev = cell.device
-    model = Model(model_dict(cell.config),
-                  make_t5_weights(cell.config, cell.seed, dev))
+    model = cell.arch.reference(cell.config,
+                                cell.arch.weights(cell.config, cell.seed, dev))
     score_gap = order_gap = 0.0
     for i in sample(cell, done, corpus):
         q, docs, _, scores, order = done[i]

@@ -18,6 +18,7 @@ checked steps on the same inputs.
 
 from __future__ import annotations
 
+import functools
 import math
 import sys
 import time
@@ -26,12 +27,8 @@ import torch
 
 from benchmarks.common import data, tracing
 from benchmarks.common.cell import Cell, Outcome
-from benchmarks.common.inputs import (
-    make_corpus,
-    model_dict,
-    port_model_config,
-)
-from benchmarks.common.weights import make_t5_weights, nest
+from benchmarks.common.inputs import make_corpus
+from benchmarks.common.weights import flatten, nest
 from benchmarks.reference import lce as ref
 
 
@@ -88,7 +85,7 @@ class _Program:
             pools=corpus["pools"], prefix=t(tok["prefix"]), mid=t(tok["mid"]),
             suffix=t(tok["suffix"]), pad_id=tok["pad"], true_id=tok["true"],
             false_id=tok["false"], eos_id=tok["eos"], packed=tr["packed"])
-        mcfg = port_model_config(cell.config, tr["remat"])
+        mcfg = cell.arch.port_config(cell.config, tr["remat"])
         run_cfg = RunConfig(
             curriculum=tr["curriculum"], batch_size=plan["batch"], n=plan["n"],
             lr=plan["lr"], warmup_steps=tr["warmup_examples"],
@@ -157,7 +154,7 @@ class _Program:
         else:
             fused = make_fused_step(self.corpus, recorded_step, controller,
                                     loss="lce", n_neg_per_example=plan["n"])
-        params = nest(make_t5_weights(cell.config, cell.seed, dev))
+        params = nest(cell.arch.weights(cell.config, cell.seed, dev))
         self.state = init_train_state(params, tx, controller.init(dev),
                                       seed=plan["sampling_seed"])
         self.loop = TrainLoop(
@@ -182,8 +179,6 @@ def _norms(flat: dict) -> dict:
 
 
 def run(cell: Cell) -> Outcome:
-    from pacednegatives_tpu_torch.models.t5 import flatten_params
-
     tr = cell.traffic
     dev = cell.device
     counters = tracing.Counters()
@@ -200,10 +195,10 @@ def run(cell: Cell) -> Outcome:
     # the checked steps, through the window's own call
     prog.run(1)
     g1 = {k: v / 0.1 for k, v in
-          _norms(flatten_params(prog.state.opt_state.mu)).items()}
+          _norms(flatten(prog.state.opt_state.mu)).items()}
     prog.run(plan["steps"] - 1)
-    start = make_t5_weights(cell.config, cell.seed, dev)
-    now = flatten_params(prog.state.params)
+    start = cell.arch.weights(cell.config, cell.seed, dev)
+    now = flatten(prog.state.params)
     change = _norms({k: now[k] - start[k] for k in start})
     del start, now
     phases.mark("checked steps")
@@ -260,13 +255,18 @@ def run(cell: Cell) -> Outcome:
                    extra={"phases": phases.seconds})
 
 
+def reference(cell: Cell):
+    """(weights, precision) -> the architecture's plain model."""
+    return functools.partial(cell.arch.reference, cell.config)
+
+
 def control(cell: Cell) -> dict:
     """The check's numbers with the reference computed in float8 (e4m3
     operands) put in the program's place: the control that one of the
     limits has to catch."""
     corpus = make_corpus(cell.config, cell.traffic, cell.seed, cell.device)
-    weights = make_t5_weights(cell.config, cell.seed, cell.device)
-    r = ref.run_steps(model_dict(cell.config), weights, cell.config["tokens"],
+    weights = cell.arch.weights(cell.config, cell.seed, cell.device)
+    r = ref.run_steps(reference(cell), weights, cell.config["tokens"],
                       corpus, plan_of(cell), precision="fp8",
                       program_scores=None)
     del weights
@@ -283,8 +283,8 @@ def check(cell: Cell, corpus: dict, losses, g1, change, negatives,
     prompts that differ from the reference's choice, and with scored
     pools the widest score gap and order gap."""
     plan = plan_of(cell)
-    weights = make_t5_weights(cell.config, cell.seed, cell.device)
-    r = ref.run_steps(model_dict(cell.config), weights, cell.config["tokens"],
+    weights = cell.arch.weights(cell.config, cell.seed, cell.device)
+    r = ref.run_steps(reference(cell), weights, cell.config["tokens"],
                       corpus, plan, program_scores=scores or None)
     counted = ref.counted_leaves(r["grad_norms"])
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, r["loss"]))

@@ -14,7 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from benchmarks.reference.t5 import linear_warmup_decay
+
+def linear_warmup_decay(peak: float, warmup: int, total: int, step: int):
+    """The HF linear schedule: 0 -> peak over ``warmup`` steps, then down
+    to 0 at ``total``."""
+    warmup = max(warmup, 1)
+    if step < warmup:
+        return peak * step / warmup
+    return peak * max(0.0, (total - step) / max(total - warmup, 1))
 
 
 class EtaCurriculum:

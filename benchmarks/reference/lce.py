@@ -4,8 +4,10 @@ benchmark's inputs: the pair stream, the curriculum's choice of negatives
 the choice drawn from the program's order of them), the prompts, the
 forward, the LCE loss, its gradient and AdamW.
 
-The step's gradient is summed over blocks of examples, so that float32
-activations of a whole batch never live at once.
+The model is the architecture's plain reference (its hook's
+``reference``), used only through ``score`` and ``loss``. The step's
+gradient is summed over blocks of examples, so that float32 activations
+of a whole batch never live at once.
 """
 
 from __future__ import annotations
@@ -13,11 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmarks.reference.curriculum import EtaCurriculum, draw_positions
-from benchmarks.reference.t5 import (
-    AdamW,
-    Model,
-    lce_example_loss,
+from benchmarks.reference.curriculum import (
+    EtaCurriculum,
+    draw_positions,
     linear_warmup_decay,
 )
 
@@ -54,7 +54,7 @@ def balanced_slots(pool: int, c: int) -> np.ndarray:
     return np.unique(np.round(np.linspace(0, pool - 1, c)).astype(np.int64))
 
 
-def score_rows(model: Model, ids, mask, tokens, block: int) -> torch.Tensor:
+def score_rows(model, ids, mask, tokens, block: int) -> torch.Tensor:
     with torch.no_grad():
         return torch.cat([
             model.score(ids[i:i + block], mask[i:i + block], tokens["true"],
@@ -62,10 +62,12 @@ def score_rows(model: Model, ids, mask, tokens, block: int) -> torch.Tensor:
             for i in range(0, ids.shape[0], block)])
 
 
-def run_steps(model_cfg: dict, weights: dict, tokens: dict, corpus: dict,
+def run_steps(reference, weights: dict, tokens: dict, corpus: dict,
               plan: dict, program_scores=None, precision: str = "fp32"):
     """Run ``plan["steps"]`` LCE steps of the reference.
 
+    ``reference(weights, precision)``: the architecture's plain model over
+    flat {path: tensor} weights.
     ``plan``: batch, n, pool, num_pairs, pair_seed, sampling_seed, lr,
     warmup, total, clip, eta0, ce_scale, packed, block_examples, steps;
     with model-scored pools also candidates and score_block.
@@ -97,15 +99,14 @@ def run_steps(model_cfg: dict, weights: dict, tokens: dict, corpus: dict,
     if plan.get("candidates"):
         slots = torch.from_numpy(balanced_slots(P, plan["candidates"])).to(dev)
     packed = plan["packed"]
-    labels = lambda rows, tok: torch.tensor(
-        [tok, tokens["eos"]], device=dev).expand(rows, 2)
+    verbalizer = lambda rows, tok: torch.full((rows,), tok, device=dev)
     for t, pairs in enumerate(batches):
         pairs = torch.from_numpy(pairs).to(dev)
         q = corpus["query_rows"][pairs]
         pos_d = corpus["pos_rows"][pairs]
         pool = corpus["pools"][pairs]
         mean = eta.difficulty().expand(B)
-        model = Model(model_cfg, params, precision)
+        model = reference(params, precision)
         if slots is None:
             neg_d = pool.gather(1, draw_positions(gen, P, mean, n))
         else:
@@ -134,17 +135,17 @@ def run_steps(model_cfg: dict, weights: dict, tokens: dict, corpus: dict,
                                     neg_d.reshape(-1), packed)
         out["negatives"].append(neg_ids)
         leaves = {k: p.requires_grad_(True) for k, p in params.items()}
-        model = Model(model_cfg, leaves, precision)
+        model = reference(leaves, precision)
         per_example = []
         e = plan["block_examples"]
         for i in range(0, B, e):
             j = min(i + e, B)
             with torch.enable_grad():
-                ce = model.row_ce(
+                ce = model.loss(
                     torch.cat([pos_ids[i:j], neg_ids[i * n:j * n]]),
                     torch.cat([pos_mask[i:j], neg_mask[i * n:j * n]]),
-                    torch.cat([labels(j - i, tokens["true"]),
-                               labels((j - i) * n, tokens["false"])]))
+                    torch.cat([verbalizer(j - i, tokens["true"]),
+                               verbalizer((j - i) * n, tokens["false"])]))
                 ex = lce_example_loss(ce[:j - i], ce[j - i:], n)
                 (ex.sum() / B).backward()
             per_example.append(ex.detach())
@@ -186,3 +187,47 @@ def counted_leaves(grad_norms: dict, share: float = 1e-3) -> list:
     at least ``share`` of the median leaf's."""
     med = float(np.median(list(grad_norms.values())))
     return sorted(k for k, v in grad_norms.items() if v >= share * med)
+
+
+def lce_example_loss(pce: torch.Tensor, nce: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """LCE per example: its positive's CE plus the sum of its n
+    negatives' (``nce`` example-major)."""
+    return pce + nce.view(-1, n).sum(dim=1)
+
+
+class AdamW:
+    """Global-norm clipping (scaled by clip / norm when the norm reaches
+    clip), then AdamW (decoupled weight decay) with bias correction, the
+    learning rate read at the count before the update."""
+
+    def __init__(self, lr_at, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0,
+                 clip=1.0):
+        self.lr_at, self.b1, self.b2, self.eps = lr_at, b1, b2, eps
+        self.wd, self.clip = weight_decay, clip
+        self.count = 0
+        self.mu: dict = {}
+        self.nu: dict = {}
+
+    def clip_grads(self, grads: dict) -> dict:
+        if self.clip is None:
+            return grads
+        norm = torch.sqrt(sum(g.double().square().sum()
+                              for g in grads.values())).float()
+        scale = 1.0 if norm < self.clip else self.clip / norm
+        return {k: g * scale for k, g in grads.items()}
+
+    def step(self, params: dict, grads: dict) -> dict:
+        grads = self.clip_grads(grads)
+        lr = self.lr_at(self.count)
+        self.count += 1
+        c1 = 1 - self.b1 ** self.count
+        c2 = 1 - self.b2 ** self.count
+        out = {}
+        for k, p in params.items():
+            g = grads[k]
+            self.mu[k] = self.b1 * self.mu.get(k, 0.0) + (1 - self.b1) * g
+            self.nu[k] = self.b2 * self.nu.get(k, 0.0) + (1 - self.b2) * g * g
+            upd = (self.mu[k] / c1) / (torch.sqrt(self.nu[k] / c2) + self.eps)
+            out[k] = p - lr * (upd + self.wd * p)
+        return out

@@ -1,7 +1,7 @@
-"""Plain PyTorch reference of what the benchmark's cells compute: a T5 v1.0
+"""Plain PyTorch reference of the T5 cells' model: a T5 v1.0
 encoder-decoder (relative position bias, RMS norm without bias, ReLU FFN,
 no 1/sqrt(d_k) in attention, the LM head tied to the embedding with the
-d_model^-0.5 rescale), monoT5's relevance score, the LCE loss and AdamW.
+d_model^-0.5 rescale), monoT5's relevance score and its training CE.
 
 It follows the published T5 description, in float32 with TF32 off, and
 imports nothing of the program: it takes the benchmark's inputs (token
@@ -37,15 +37,17 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
 
 
 class Model:
-    """T5 v1.0 of ``cfg`` (the configuration file's ``model`` dict) over a
-    flat {path: tensor} of float32 weights."""
+    """T5 v1.0 of ``cfg`` (the architecture's sizes) over a flat {path:
+    tensor} of float32 weights; ``eos_id`` ends the training labels."""
 
-    def __init__(self, cfg: dict, weights: dict, precision: str = "fp32"):
+    def __init__(self, cfg: dict, weights: dict, precision: str = "fp32",
+                 eos_id: int | None = None):
         if precision not in ("fp32", "fp8"):
             raise ValueError(precision)
         self.cfg = cfg
         self.w = weights
         self.fp8 = precision == "fp8"
+        self.eos_id = eos_id
 
     # -- pieces ------------------------------------------------------------
 
@@ -154,55 +156,9 @@ class Model:
         logp = torch.log_softmax(logits, dim=-1)
         return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(-1)
 
+    def loss(self, ids, mask, label_ids):
+        """(B,) training CE of each row's verbalizer id (B,): the labels
+        [verbalizer, eos], teacher-forced."""
+        eos = torch.full_like(label_ids, self.eos_id)
+        return self.row_ce(ids, mask, torch.stack([label_ids, eos], dim=1))
 
-def lce_example_loss(pce: torch.Tensor, nce: torch.Tensor,
-                     n: int) -> torch.Tensor:
-    """LCE per example: its positive's CE plus the sum of its n
-    negatives' (``nce`` example-major)."""
-    return pce + nce.view(-1, n).sum(dim=1)
-
-
-def linear_warmup_decay(peak: float, warmup: int, total: int, step: int):
-    """The HF linear schedule: 0 -> peak over ``warmup`` steps, then down
-    to 0 at ``total``."""
-    warmup = max(warmup, 1)
-    if step < warmup:
-        return peak * step / warmup
-    return peak * max(0.0, (total - step) / max(total - warmup, 1))
-
-
-class AdamW:
-    """Global-norm clipping (scaled by clip / norm when the norm reaches
-    clip), then AdamW (decoupled weight decay) with bias correction, the
-    learning rate read at the count before the update."""
-
-    def __init__(self, lr_at, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0,
-                 clip=1.0):
-        self.lr_at, self.b1, self.b2, self.eps = lr_at, b1, b2, eps
-        self.wd, self.clip = weight_decay, clip
-        self.count = 0
-        self.mu: dict = {}
-        self.nu: dict = {}
-
-    def clip_grads(self, grads: dict) -> dict:
-        if self.clip is None:
-            return grads
-        norm = torch.sqrt(sum(g.double().square().sum()
-                              for g in grads.values())).float()
-        scale = 1.0 if norm < self.clip else self.clip / norm
-        return {k: g * scale for k, g in grads.items()}
-
-    def step(self, params: dict, grads: dict) -> dict:
-        grads = self.clip_grads(grads)
-        lr = self.lr_at(self.count)
-        self.count += 1
-        c1 = 1 - self.b1 ** self.count
-        c2 = 1 - self.b2 ** self.count
-        out = {}
-        for k, p in params.items():
-            g = grads[k]
-            self.mu[k] = self.b1 * self.mu.get(k, 0.0) + (1 - self.b1) * g
-            self.nu[k] = self.b2 * self.nu.get(k, 0.0) + (1 - self.b2) * g * g
-            upd = (self.mu[k] / c1) / (torch.sqrt(self.nu[k] / c2) + self.eps)
-            out[k] = p - lr * (upd + self.wd * p)
-        return out

@@ -6,8 +6,10 @@
 The cell (``workloads`` in ``BENCHMARK.json``) names a configuration
 (``benchmarks/configs/<config>.json``) and a traffic mix
 (``benchmarks/traffic/<traffic>.json``), whose ``driver`` names the module
-``benchmarks/drivers/<driver>.py`` that runs it; the limits of its
-correctness check are ``benchmarks/limits/<workload>.json``. With
+``benchmarks/drivers/<driver>.py`` that runs it; the configuration's
+``architectures[0]`` names the module of the model's hooks,
+``benchmarks/arch/<architecture>.py``; the limits of its correctness
+check are ``benchmarks/limits/<workload>.json``. With
 ``--trace 0`` the result holds the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, each read by
 ``benchmarks/metrics/<metric>.py``. The last line of standard output is
@@ -20,6 +22,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import functools  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -64,8 +67,8 @@ def load_module(path: Path, name: str):
 
 
 def resolve(root: Path, workload: str) -> SimpleNamespace:
-    """The cell's entry, configuration, traffic, limits and metrics, found
-    by name under ``root``."""
+    """The cell's entry, configuration, architecture's hooks, traffic,
+    limits and metrics, found by name under ``root``."""
     manifest = load_json(root / "BENCHMARK.json")
     bench = root / "benchmarks"
     cells = {w["name"]: w for w in manifest["workloads"]}
@@ -73,7 +76,8 @@ def resolve(root: Path, workload: str) -> SimpleNamespace:
         raise SystemExit(f"unknown workload {workload!r}; "
                          f"known: {sorted(cells)}")
     w = cells[workload]
-    config = next(c for c in manifest["configs"] if c["name"] == w["config"])
+    config_file = next(c["file"] for c in manifest["configs"]
+                       if c["name"] == w["config"])
 
     def applies(metric):
         return workload in metric.get("workloads", [workload])
@@ -83,8 +87,11 @@ def resolve(root: Path, workload: str) -> SimpleNamespace:
     per_layer = [m for m in manifest["per_layer"]
                  if applies(m) and m["moves"] in e2e_names]
     traffic = load_json(bench / "traffic" / f"{w['traffic']}.json")
+    config = load_json(root / config_file)
     return SimpleNamespace(
-        entry=w, config=load_json(root / config["file"]), traffic=traffic,
+        entry=w, config=config,
+        arch=bench / "arch" / f"{config['architectures'][0]}.py",
+        traffic=traffic,
         limits=load_json(bench / "limits" / f"{workload}.json"),
         driver=bench / "drivers" / f"{traffic['driver']}.py",
         metrics=bench / "metrics", end_to_end=end_to_end,
@@ -142,7 +149,8 @@ def main(argv=None, *, root: Path = ROOT, device=None, fault=None) -> int:
     from benchmarks.common.cell import Cell
     from benchmarks.common.flops import peak_flops
 
-    cell = Cell(workload=args.workload, config=cell_spec.config,
+    arch = load_module(cell_spec.arch, cell_spec.arch.stem)
+    cell = Cell(workload=args.workload, config=cell_spec.config, arch=arch,
                 traffic=cell_spec.traffic, limits=cell_spec.limits,
                 seed=args.seed, seconds=args.seconds,
                 trace=bool(args.trace), device=device, t_start=T_START,
@@ -161,10 +169,10 @@ def main(argv=None, *, root: Path = ROOT, device=None, fault=None) -> int:
     dev["memory_peak_bytes"] = int(outcome.memory_peak_bytes)
     metrics = {}
     if args.trace:
-        from benchmarks.common.inputs import model_dict
-
+        sizes = arch.sizes(cell.config)
         ctx = SimpleNamespace(
-            outcome=outcome, model=model_dict(cell.config),
+            outcome=outcome, model=sizes,
+            forward_flops=functools.partial(arch.forward_flops, sizes),
             peak_flops=peak_flops(dev["kind"]))
         for m in cell_spec.per_layer:
             reader = load_module(cell_spec.metrics / f"{m['name']}.py",

@@ -1,7 +1,7 @@
 """The harness on the CPU: every driver at a tiny T5 through the port's
-plain routes, the planted faults, cells and metrics found by name, the
-manifest's names, the FLOP and byte counts by hand, and the modules a run
-loads.
+plain routes, the planted faults, cells, architectures and metrics found
+by name, the manifest's names, the FLOP and byte counts by hand, the
+trace's reduction, and the modules a run loads.
 
 Run: ``python -m pytest benchmarks/tests -q``.
 """
@@ -125,6 +125,170 @@ def test_new_cell_config_mix_and_metric_are_found_by_name(tree, tmp_path):
     assert out["metrics"]["rows_traced.train"]["value"] == 2 * 2 * 3
 
 
+# A second architecture, in its own key names, mapped onto the tiny T5 so
+# that the port's path runs it. The harness may read none of T5's keys.
+OTHER_ARCH = '''"""Hooks of a test architecture: its own key names over the
+tiny T5."""
+
+from benchmarks.arch import T5ForConditionalGeneration as t5
+
+SIZES = ("vocab_size", "hidden_size", "head_dim", "intermediate_size",
+         "num_attention_heads", "num_hidden_layers")
+
+
+def _t5_sizes(s):
+    return {"vocab_size": s["vocab_size"], "d_model": s["hidden_size"],
+            "d_kv": s["head_dim"], "d_ff": s["intermediate_size"],
+            "num_heads": s["num_attention_heads"],
+            "num_layers": s["num_hidden_layers"],
+            "num_decoder_layers": s["num_hidden_layers"]}
+
+
+def _t5(config):
+    return dict(_t5_sizes(config), relative_attention_num_buckets=32,
+                relative_attention_max_distance=128,
+                layer_norm_epsilon=config["rms_norm_eps"],
+                feed_forward_proj="relu", tie_word_embeddings=True,
+                pad_token_id=config["tokens"]["pad"],
+                decoder_start_token_id=0, run=config["run"],
+                tokens=config["tokens"])
+
+
+def sizes(config):
+    return {k: config[k] for k in SIZES}
+
+
+def port_config(config, remat):
+    return t5.port_config(_t5(config), remat)
+
+
+def weights(config, seed, device):
+    return t5.weights(_t5(config), seed, device)
+
+
+def reference(config, weights, precision="fp32"):
+    return t5.reference(_t5(config), weights, precision)
+
+
+def forward_flops(sizes, rows, sum_len, sum_len_sq, trained):
+    return t5.forward_flops(_t5_sizes(sizes), rows, sum_len, sum_len_sq,
+                            trained)
+'''
+OTHER_CONFIG = {
+    "source": "test", "architectures": ["TinyTestForCausalLM"],
+    "vocab_size": 512, "hidden_size": 128, "head_dim": 64,
+    "intermediate_size": 256, "num_attention_heads": 2,
+    "num_hidden_layers": 2, "rms_norm_eps": 1e-6,
+}
+# the port's device time under pnt.step, a step and a layer
+PNT_METRIC = (
+    "def read(ctx):\n"
+    "    t = ctx.outcome.trace\n"
+    "    if t is None or 'pnt.step' not in t['span_device_s']:\n"
+    "        return None\n"
+    "    ms = 1e3 * t['span_device_s']['pnt.step'] / ctx.outcome.attempted\n"
+    "    return ms / ctx.model['num_hidden_layers']\n")
+
+
+def test_another_architecture_is_found_by_name(tree, tmp_path):
+    from benchmarks.tests.tiny import CONFIG
+
+    root = make_tree(tmp_path / "grown")
+    before = _digest(root)
+    b = root / "benchmarks"
+    assert not set(OTHER_CONFIG) & (set(CONFIG) - {"source", "vocab_size",
+                                                   "architectures"})
+    (b / "arch" / "TinyTestForCausalLM.py").write_text(OTHER_ARCH)
+    (b / "configs" / "tiny-other.json").write_text(json.dumps(dict(
+        OTHER_CONFIG, run=CONFIG["run"], tokens=CONFIG["tokens"])))
+    (b / "limits" / "tiny-other.lce.json").write_text(
+        (b / "limits" / "tiny.lce.json").read_text())
+    (b / "metrics" / "pnt_step_ms_per_layer.train.py").write_text(PNT_METRIC)
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    manifest["configs"].append({"name": "tiny-other", "source": "test",
+                                "file": "benchmarks/configs/tiny-other.json",
+                                "reduced": [], "why": "another architecture"})
+    manifest["workloads"].append({"name": "tiny-other.lce",
+                                  "config": "tiny-other", "traffic": "lce",
+                                  "chips": 1, "why": "another architecture"})
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if m["name"] in ("train_negatives_per_s", "train_mfu"):
+            m["workloads"].append("tiny-other.lce")
+    manifest["per_layer"].append({
+        "name": "pnt_step_ms_per_layer.train", "unit": "ms",
+        "better": "lower", "source": "device_trace", "layer": "model step",
+        "moves": "train_negatives_per_s", "workloads": ["tiny-other.lce"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    after = _digest(root)
+    assert {k for k in before if before[k] != after[k]} == {"BENCHMARK.json"}
+
+    rc, out = run_cell(root, "tiny-other.lce")
+    assert rc == 0 and out["correct"] is True, out["checks"]
+    assert out["metrics"]["train_negatives_per_s"]["value"] > 0
+    rc, out = run_cell(root, "tiny-other.lce", trace=1)
+    assert rc == 0 and out["correct"] is True, out["checks"]
+    # the span is there; the CPU ran no kernel under it
+    assert out["metrics"]["pnt_step_ms_per_layer.train"] == {
+        "value": 0.0, "unit": "ms"}
+    # the same model under T5's own names reads the same checks (to the
+    # CPU's run-to-run rounding: its embedding backward sums threads'
+    # parts in no fixed order)
+    rc, t5_out = run_cell(root, "tiny.lce", trace=1)
+    assert {k: pytest.approx(c["value"], rel=0.01, abs=1e-9)
+            for k, c in t5_out["checks"].items()} == {
+        k: c["value"] for k, c in out["checks"].items()}
+
+
+def test_a_fifth_cell_in_the_manifest_leaves_the_tiny_tree_whole(tmp_path):
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    new = "moonlight-16b-a3b.lce-b32"
+    manifest["workloads"].append({"name": new, "config": "monot5-large",
+                                  "traffic": "lce-b32", "chips": 1,
+                                  "why": "a cell the tiny tree does not know"})
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if m["name"] in ("train_negatives_per_s", "train_mfu"):
+            m["workloads"].append(new)
+    root = make_tree(tmp_path / "five", manifest)
+    built = json.loads((root / "BENCHMARK.json").read_text())
+    listed = {w for m in built["end_to_end"] + built["per_layer"]
+              for w in m.get("workloads", [])}
+    assert listed == {"tiny.lce", "tiny.scored", "tiny.rerank"}
+    rc, out = run_cell(root, "tiny.lce")
+    assert rc == 0 and out["correct"] is True, out["checks"]
+
+
+def test_t5_hooks_equal_what_they_replace():
+    """The T5 hooks read what ``model_dict``, ``make_t5_weights`` and
+    ``t5_forward_flops`` gave before the hooks existed, bit for bit."""
+    import torch
+
+    from benchmarks.arch import T5ForConditionalGeneration as t5_arch
+    from benchmarks.tests.tiny import CONFIG
+
+    sizes = t5_arch.sizes(CONFIG)
+    assert sizes == {
+        "vocab_size": 512, "d_model": 128, "d_kv": 64, "d_ff": 256,
+        "num_heads": 2, "num_layers": 2, "num_decoder_layers": 2,
+        "relative_attention_num_buckets": 32,
+        "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6}
+    w = t5_arch.weights(CONFIG, SEED, "cpu")
+    h = hashlib.sha256()
+    for k, v in w.items():
+        assert v.dtype == torch.float32
+        h.update(k.encode())
+        h.update(str(tuple(v.shape)).encode())
+        h.update(v.numpy().tobytes())
+    # make_t5_weights(CONFIG, SEED, "cpu"), 47 leaves in its order
+    assert len(w) == 47
+    assert h.hexdigest() == ("7be69eca5f674a6680854c09380ec8d6"
+                             "9822039267a515836d3bedda489a3d14")
+    for trained, l_dec, old in ((True, 2, 222720000.0),
+                                (False, 1, 214517760.0)):
+        got = t5_arch.forward_flops(sizes, 10, 300.0, 9500.0, trained)
+        assert got == old == flops.t5_forward_flops(sizes, 10, 300.0,
+                                                    9500.0, l_dec)
+
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -233,6 +397,47 @@ def test_trace_reduction():
         20e-6)
 
 
+def test_trace_reduction_of_the_ports_spans():
+    """pnt.* spans collect device time: nested spans inclusively, a name
+    nested in itself once, and a span opened on another thread (the
+    autograd engine's, inside a backward) what that thread launches."""
+    launch = lambda ts, tid, corr: {
+        "ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+        "ts": ts, "dur": 1, "tid": tid, "args": {"correlation": corr}}
+    kernel = lambda ts, dur, corr: {
+        "ph": "X", "cat": "kernel", "name": f"k{corr}", "ts": ts,
+        "dur": dur, "tid": 9, "args": {"correlation": corr}}
+    span = lambda name, ts, dur, tid: {
+        "ph": "X", "cat": "user_annotation", "name": name, "ts": ts,
+        "dur": dur, "tid": tid}
+    ev = [
+        span("bench.window", 0, 200, 1),
+        span("pnt.step", 10, 150, 1),
+        span("pnt.step.fwd_bwd", 20, 40, 1),
+        span("pnt.step.optimizer", 100, 40, 1),
+        span("pnt.loop.read_metrics", 170, 20, 1),
+        span("pnt.loop.read_metrics", 175, 5, 1),  # nested in itself
+        # the backward's thread: the engine's scope and a span inside it
+        span(tracing.ATTN_BWD_SCOPE, 60, 30, 2),
+        span("pnt.attn.bwd", 65, 10, 2),
+        launch(25, 1, 1), kernel(30, 10, 1),  # fwd_bwd, step
+        launch(70, 2, 2), kernel(72, 6, 2),  # attn.bwd, the engine's scope
+        launch(85, 2, 3), kernel(86, 3, 3),  # the engine's scope alone
+        launch(110, 1, 4), kernel(112, 20, 4),  # optimizer, step
+        launch(176, 1, 5), kernel(181, 2, 5),  # read_metrics, once
+        launch(195, 1, 6), kernel(196, 2, 6),  # the window alone
+    ]
+    r = tracing.reduce(ev)
+    dev = {k: v * 1e6 for k, v in r["span_device_s"].items()}
+    assert dev == pytest.approx({
+        "bench.window": 10 + 20 + 2 + 2, "pnt.step": 10 + 20,
+        "pnt.step.fwd_bwd": 10, "pnt.step.optimizer": 20,
+        "pnt.loop.read_metrics": 2, tracing.ATTN_BWD_SCOPE: 6 + 3,
+        "pnt.attn.bwd": 6})
+    assert r["unattributed_kernels"] == 0
+    assert r["busy_s"] == pytest.approx(43e-6)
+
+
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "pacednegatives_tpu"}
 
 
@@ -294,7 +499,9 @@ def test_control_is_not_correct(tree, cell):
     spec = harness.resolve(tree, cell)
     driver = harness.load_module(spec.driver, spec.traffic["driver"])
     checks = driver.control(Cell(
-        workload=cell, config=spec.config, traffic=spec.traffic,
+        workload=cell, config=spec.config,
+        arch=harness.load_module(spec.arch, spec.arch.stem),
+        traffic=spec.traffic,
         limits=spec.limits, seed=SEED, seconds=0.0, trace=False,
         device=torch.device("cpu"), t_start=time.perf_counter(),
         out_dir=str(tree / "out")))

@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmarks.common.weights import make_t5_weights, nest, t5_leaves
+from benchmarks.arch import T5ForConditionalGeneration as t5_arch
+from benchmarks.common.weights import nest
 from benchmarks.reference import curriculum as ref_cur
-from benchmarks.reference.t5 import AdamW, Model, linear_warmup_decay
+from benchmarks.reference.curriculum import linear_warmup_decay
+from benchmarks.reference.lce import AdamW
+from benchmarks.reference.t5 import Model
 from benchmarks.tests.tiny import CONFIG
 
 
@@ -39,10 +42,10 @@ def test_weights_have_the_ports_tree():
 
     port = flatten_params(init_params(_port_cfg(),
                                       torch.Generator().manual_seed(0)))
-    ours = {k: s for k, s, _ in t5_leaves(CONFIG)}
+    ours = {k: s for k, s, _ in t5_arch.leaves(t5_arch.sizes(CONFIG))}
     assert ours == {k: tuple(v.shape) for k, v in port.items()}
-    a = make_t5_weights(CONFIG, 2**40 + 1, "cpu")
-    b = make_t5_weights(CONFIG, 2**40 + 1, "cpu")
+    a = t5_arch.weights(CONFIG, 2**40 + 1, "cpu")
+    b = t5_arch.weights(CONFIG, 2**40 + 1, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
@@ -50,9 +53,9 @@ def test_scores_and_ce_match_the_port():
     from pacednegatives_tpu_torch.models import t5
     from pacednegatives_tpu_torch.models.monot5 import score_batch
 
-    w = make_t5_weights(CONFIG, 7, "cpu")
+    w = t5_arch.weights(CONFIG, 7, "cpu")
     ids, mask = _prompts()
-    ref = Model(CONFIG, w)
+    ref = t5_arch.reference(CONFIG, w)
     got = score_batch(nest(w), _port_cfg(), ids, mask.int(), 3, 4)
     want = ref.score(ids, mask, 3, 4)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -62,6 +65,10 @@ def test_scores_and_ce_match_the_port():
         -1, labels[..., None])[..., 0].mean(-1)
     torch.testing.assert_close(ref.row_ce(ids, mask, labels), port_ce,
                                rtol=1e-5, atol=1e-5)
+    # the per-row loss of the verbalizer id forms the same labels
+    verbalizer = torch.full((ids.shape[0],), 4)
+    assert torch.equal(ref.loss(ids, mask, verbalizer),
+                       ref.row_ce(ids, mask, labels))
 
 
 def test_position_buckets_match_the_port():
@@ -131,7 +138,7 @@ def test_eta_update_matches_the_port():
 
 
 def test_fp8_control_is_far_from_fp32():
-    w = make_t5_weights(CONFIG, 11, "cpu")
+    w = t5_arch.weights(CONFIG, 11, "cpu")
     ids, mask = _prompts(B=16)
     a = Model(CONFIG, w).score(ids, mask, 3, 4)
     b = Model(CONFIG, w, precision="fp8").score(ids, mask, 3, 4)
@@ -143,7 +150,7 @@ def test_reference_on_the_card_matches_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    w = make_t5_weights(CONFIG, 13, "cpu")
+    w = t5_arch.weights(CONFIG, 13, "cpu")
     ids, mask = _prompts()
     cpu = Model(CONFIG, w).score(ids, mask, 3, 4)
     gpu = Model(CONFIG, {k: v.cuda() for k, v in w.items()}).score(

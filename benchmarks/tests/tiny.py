@@ -1,5 +1,6 @@
-"""A tree of tiny cells for the harness's CPU tests: the real drivers and
-metric readers, a T5 of two layers a stack, and traffic scaled down."""
+"""A tree of tiny cells for the harness's CPU tests: the real drivers,
+architecture hooks and metric readers, a T5 of two layers a stack, and
+traffic scaled down."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 
 CONFIG = {
-    "source": "tiny",
+    "source": "tiny", "architectures": ["T5ForConditionalGeneration"],
     "vocab_size": 512, "d_model": 128, "d_kv": 64, "d_ff": 256,
     "num_heads": 2, "num_layers": 2, "num_decoder_layers": 2,
     "relative_attention_num_buckets": 32,
@@ -52,16 +53,21 @@ LIMITS = {
 LIMITS["scored"] = dict(LIMITS["lce"], score_gap=1e-4, order_gap=1e-4)
 
 
-def make_tree(dest: Path) -> Path:
-    """A root with BENCHMARK.json and benchmarks/{drivers,metrics,configs,
-    traffic,limits} for the cells tiny.lce, tiny.scored, tiny.rerank."""
+def make_tree(dest: Path, manifest: dict | None = None) -> Path:
+    """A root with BENCHMARK.json and benchmarks/{drivers,arch,metrics,
+    configs,traffic,limits} for the cells tiny.lce, tiny.scored,
+    tiny.rerank. The metrics and their bounds are ``manifest``'s (the
+    repo's ``BENCHMARK.json`` by default); each metric's ``workloads``
+    lists the tiny cells that stand for its cells, and a cell with no
+    tiny stand-in is dropped."""
     b = dest / "benchmarks"
-    shutil.copytree(BENCH / "drivers", b / "drivers")
-    shutil.copytree(BENCH / "metrics", b / "metrics")
+    for sub in ("drivers", "arch", "metrics"):
+        shutil.copytree(BENCH / sub, b / sub)
     for sub in ("configs", "traffic", "limits"):
         (b / sub).mkdir(parents=True)
     (b / "configs" / "tiny.json").write_text(json.dumps(CONFIG))
-    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    manifest = copy.deepcopy(
+        manifest or json.loads((ROOT / "BENCHMARK.json").read_text()))
     manifest["configs"] = [{"name": "tiny", "source": "tiny",
                             "file": "benchmarks/configs/tiny.json",
                             "reduced": [], "why": "CPU tests"}]
@@ -79,7 +85,8 @@ def make_tree(dest: Path) -> Path:
              "monot5-base.rerank-d1000": "tiny.rerank"}
     for m in manifest["end_to_end"] + manifest["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = sorted({alias[w] for w in m["workloads"]})
+            m["workloads"] = sorted({alias[w] for w in m["workloads"]
+                                     if w in alias})
     (dest / "BENCHMARK.json").write_text(json.dumps(manifest))
     return dest
 

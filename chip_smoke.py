@@ -31,11 +31,24 @@ Phases, one JSON line each (any failure exits non-zero):
    embed_grad - the embedding lookup's backward (E1, ``csrc/embed_grad.cu``)
              at lce-b64's encoder lookup (512 x 188 ids, D 768) and
              lce-b32's (256 x 188, D 1024), vocab 32,128, bf16, about half
-             the ids pad: each row within one bf16 ulp of its largest fp64
+             the ids pad, and at the Moonlight cell's (its ~24,000 real
+             ids of 256 x 188, D 2,048, vocab 20,480): each row within one bf16 ulp of its largest fp64
              value, bitwise equal across two calls; the whole op (sort and
              both passes), the plain version, aten's
              ``embedding_dense_backward`` and the ``index_put_`` that
              autograd through ``table[ids]`` ran, timed;
+   moe_gemm - M1, the expert layers' grouped GEMM (``csrc/moe_gemm.cu``)
+             at the Moonlight cell's shapes (gate|up and down, forward, dX
+             and dW over ~15,000 slots on 8 experts): against the plain
+             per-expert loop, bitwise equal across two calls, timed beside
+             ``torch._grouped_mm``;
+   moonlight - the Moonlight cell's model (DeepSeek-V3 layers at
+             Moonlight-16B-A3B's widths: 9 layers, 8 of 64 experts held,
+             vocabulary 20,480, bf16) trained through ``make_train_step``
+             for a few LCE steps of 32 x (1 + 7) rows with the counts
+             zeroed first: M1 exactly 4 x 8 (forward and dX) and 2 x 8
+             (dW) times a step, E1 once, no other kernel; finite losses,
+             step ms and peak memory;
 4. slice   - monoT5 rerank at t5-base width (random weights from a seed,
              flash_v3 on, bf16) through ``Reranker.rerank``: unpacked, then
              packed with length buckets. Launch counts must equal the
@@ -235,8 +248,9 @@ from pacednegatives_tpu_torch.eval.rerank import Reranker
 from pacednegatives_tpu_torch.eval.run_io import read_trec_run
 from pacednegatives_tpu_torch.index import bm25
 from pacednegatives_tpu_torch.index.dense import DenseIndex
-from pacednegatives_tpu_torch.models import t5
+from pacednegatives_tpu_torch.models import deepseek_v3, t5
 from pacednegatives_tpu_torch.models.dual_encoder import encode_corpus
+from pacednegatives_tpu_torch.ops import moe
 from pacednegatives_tpu_torch.models.hf_import import load_hf_checkpoint
 from pacednegatives_tpu_torch.models.monot5 import score_batch
 from pacednegatives_tpu_torch.models.quant import (
@@ -1017,9 +1031,12 @@ def _sdpa_bwd_library(q, k, v, g, pos, km, dtype=torch.bfloat16,
 
 
 # Phase 3b. The embedding lookup's backward at the training cells' encoder
-# lookups: (rows a step, D) at L 188 and vocab 32,128.
-EMBED_SHAPES = {"lce_b64_base": (512, 768), "lce_b32_large": (256, 1024)}
-EMBED_L, EMBED_VOCAB = 188, 32_128
+# lookups: (rows a step, D, vocab, real tokens only) at L 188; the
+# Moonlight cell's lookup runs on the real tokens alone (no pad ids).
+EMBED_SHAPES = {"lce_b64_base": (512, 768, 32_128, False),
+                "lce_b32_large": (256, 1024, 32_128, False),
+                "lce_b32_moonlight": (256, 2048, 20_480, True)}
+EMBED_L = 188
 
 
 def _step_ids(g, B: int, L: int, V: int) -> torch.Tensor:
@@ -1047,10 +1064,12 @@ def _row_ulps(got: torch.Tensor, ids: torch.Tensor, cot: torch.Tensor,
 def phase_embed_grad() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for label, (B, D) in EMBED_SHAPES.items():
-        V, N = EMBED_VOCAB, B * EMBED_L
+    for label, (B, D, V, real) in EMBED_SHAPES.items():
         ids = _step_ids(g, B, EMBED_L, V)
-        cot = _randn(g, B, EMBED_L, D)
+        if real:
+            ids = ids[ids != 0]
+        N = ids.numel()
+        cot = _randn(g, *ids.shape, D)
         before = embedding_lookup.launches
         got = embedding_grad(cot, ids, V)
         again = embedding_grad(cot, ids, V)
@@ -1092,6 +1111,154 @@ def phase_embed_grad() -> dict:
         emit("embed_grad", case=label, **r)
         out[label] = r
     return out
+
+
+# Phase 3c. M1, the grouped GEMM of the expert layers, at the Moonlight
+# cell's shapes: about 20,000 real tokens a step routed 6 a token over 64
+# experts, the 8 held ones computed (gate|up: 2,048 -> 2,816; down:
+# 1,408 -> 2,048), forward, dX and dW.
+MOE_TOKENS, MOE_EXPERTS, MOE_HELD, MOE_K = 20_000, 64, 8, 6
+MOE_D, MOE_F = 2048, 1408
+
+
+def phase_moe_gemm() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.topk(torch.rand(MOE_TOKENS, MOE_EXPERTS, generator=g,
+                                device="cuda"), MOE_K, dim=-1).indices
+    plan = moe.dispatch_plan(idx, 0, MOE_HELD)
+    offs = plan["offs"]
+    end = plan["rows"]
+    slots = int(plan["counts"].sum())
+    x = _randn(g, MOE_TOKENS, MOE_D)
+    xs = moe.dispatch(x, plan, MOE_K)
+    out = {}
+    for label, K, N in (("gate_up", MOE_D, 2 * MOE_F), ("down", MOE_F, MOE_D)):
+        xk = xs if K == MOE_D else _randn(g, end, K)
+        w = _randn(g, MOE_HELD, K, N, scale=K ** -0.5)
+        dy = _randn(g, end, N)
+        wt = w.transpose(1, 2).contiguous()
+        cases = {
+            "fwd": (lambda: moe.grouped_gemm(xk, w, offs),
+                    lambda: moe.grouped_gemm_plain(xk, w, offs),
+                    lambda: torch._grouped_mm(xk, w, offs=offs[1:]),
+                    2.0 * slots * K * N,
+                    2 * (slots * K + MOE_HELD * K * N + slots * N)),
+            "dx": (lambda: moe.grouped_gemm(dy, wt, offs),
+                   lambda: moe.grouped_gemm_plain(dy, wt, offs),
+                   lambda: torch._grouped_mm(dy, wt, offs=offs[1:]),
+                   2.0 * slots * K * N,
+                   2 * (slots * N + MOE_HELD * K * N + slots * K)),
+            "dw": (lambda: moe.grouped_wgrad(xk, dy, offs),
+                   lambda: moe.grouped_wgrad_plain(xk, dy, offs),
+                   lambda: torch._grouped_mm(xk.t(), dy, offs=offs[1:]),
+                   2.0 * slots * K * N,
+                   2 * (slots * K + slots * N + MOE_HELD * K * N)),
+        }
+        for name, (kern, plain, library, flops, nbytes) in cases.items():
+            before = (moe.grouped_wgrad if name == "dw"
+                      else moe.grouped_gemm).launches
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe_gemm {label} {name}: two calls "
+                                     "differ")
+            assert (moe.grouped_wgrad if name == "dw"
+                    else moe.grouped_gemm).launches == before + 2
+            want = plain()
+            # bf16 out of an fp32 sum in either order: half an ulp each,
+            # plus the sums' orders (~1e-6 of the scale)
+            err = max_abs(got, want) / want.float().abs().max().item()
+            r = check(f"moe_gemm_{label}_{name}", err, 8e-3,
+                      unit="of the largest output", shape=[end, K, N],
+                      slots=slots)
+            try:
+                lib = library()
+                r["library_err_rel"] = max_abs(
+                    lib, got) / got.float().abs().max().item()
+                r.update(library_ms=time_ms(library),
+                         library_ms_back_to_back=time_ms_back_to_back(library),
+                         library_note="torch._grouped_mm (the port never "
+                                      "calls it)")
+            except (AttributeError, RuntimeError) as e:
+                r.update(library_ms=None, library_note=str(e).splitlines()[0]
+                         [:200])
+            r.update(ms=time_ms(kern), ms_back_to_back=time_ms_back_to_back(
+                kern), host_us=_host_us(kern), plain_ms=time_ms(plain),
+                **bound(nbytes, flops, "bf16"))
+            emit("moe_gemm", case=f"{label}_{name}", **r)
+            out[f"{label}_{name}"] = r
+    return out
+
+
+# Phase 3d. The Moonlight cell's model (its widths, as
+# benchmarks/configs/moonlight-16b-a3b.json holds them) trained through
+# make_train_step on 32 x (1 + 7) rows at phase 5's prompt budget (L 188).
+# A step: each of the 8 expert layers runs M1's grouped GEMM twice in the
+# forward (gate|up, down) and twice for dX, and its dW pass twice; E1 once
+# (one lookup, over the real tokens).
+MOONLIGHT = dict(vocab_size=20480, num_hidden_layers=9, experts_held=(0, 8),
+                 dtype=torch.bfloat16)
+MOONLIGHT_STEPS = 3
+
+
+def phase_moonlight() -> dict:
+    cfg = deepseek_v3.DeepseekV3Config(**MOONLIGHT)
+    experts = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    per_step = _per_step(grouped_gemm=4 * experts, grouped_wgrad=2 * experts,
+                         embed_grad=1)
+    pairs, n_neg = 32, 7
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    corpus = TextCorpus.synthetic(num_docs=2048, num_queries=256, seed=42)
+    store = TokenizedStore.build(corpus, tok, max_q_tokens=24,
+                                 max_d_tokens=160)
+    triples = TripletStore.synthetic(corpus, n_pairs=1024, n_neg=100, seed=42)
+    dc = DeviceCorpus.build(store, triples, device="cuda")
+    ctrl = EtaController(eta0=0.5, meta_lr=1e-3, warmup_steps=1,
+                         total_steps=8, kind="lce", objective="weighted_ce",
+                         optimizer="adamw", clamp=False,
+                         ce_scale=(1 + n_neg) * float(np.log(cfg.vocab_size)))
+    tx = make_optimizer(1e-3, total_steps=8, warmup_steps=1)
+    step = make_train_step(cfg, ctrl, tx, loss="lce", n_neg_per_example=n_neg,
+                           use_mean=False, rel_id=tok.true_id,
+                           nrel_id=tok.false_id)
+    state = init_train_state(
+        deepseek_v3.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        tx, ctrl.init("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [dc.lce_batch(gen, torch.arange(i * pairs, (i + 1) * pairs,
+                                              device="cuda"),
+                            torch.tensor(0.5, device="cuda"), n_neg)
+               for i in range(MOONLIGHT_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {k: v * MOONLIGHT_STEPS for k, v in per_step.items()}
+    fields = dict(layers=cfg.num_hidden_layers, experts_held=cfg.experts_held,
+                  vocab=cfg.vocab_size, rows=pairs * (1 + n_neg),
+                  prompt_len=batches[0]["pos_ids"].shape[1],
+                  real_tokens=[int(b["pos_mask"].sum() + b["neg_mask"].sum())
+                               for b in batches],
+                  steps=MOONLIGHT_STEPS, losses=losses, step_ms=step_ms,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  launches=launches, expected_launches=want,
+                  launches_per_step=per_step)
+    emit("moonlight", **fields)
+    del state, step, dc, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"moonlight: {fields}")
+    return fields
 
 
 def _check_k3(g, label, B, L) -> dict:
@@ -1519,6 +1686,8 @@ COUNTED = {
     "mips_topk": mips_topk_pallas,
     "mips_topk_int8": mips_topk_pallas_quantized,
     "embed_grad": embedding_lookup,
+    "grouped_gemm": moe.grouped_gemm,
+    "grouped_wgrad": moe.grouped_wgrad,
 }
 # E1 a forward and backward: the encoder's lookup and the decoder's, on
 # every attention route (the lookup has no plain route on the card)
@@ -4519,6 +4688,8 @@ def main() -> int:
     phase_build()
     k = phase_kernels()
     eg = phase_embed_grad()
+    mg = phase_moe_gemm()
+    mo = phase_moonlight()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             s = phase_slice()
@@ -4538,6 +4709,7 @@ def main() -> int:
     te = phase_tensor(smi)
     dk = dn["kernels"]
     paths = {"serving": s["launches"], "train": tr["run"]["launches"],
+             "moonlight_train": mo["launches"],
              "train_default_dots_nobatch": tr["default"]["launches"],
              "train_dropout_multisteps": tr["dropout"]["launches"],
              "fused512": f512["run"]["launches"],
@@ -4608,7 +4780,17 @@ def main() -> int:
                **{key: eg["lce_b64_base"][key] for key in (
                    "unit", "pad_share", "bitwise_repeat", "library_row_ulps",
                    "index_put_ms", "index_put_row_ulps")},
-               lce_b32_large=eg["lce_b32_large"]),
+               lce_b32_large=eg["lce_b32_large"],
+               lce_b32_moonlight=eg["lce_b32_moonlight"]),
+        _entry("moe_gemm", "moe_gemm.cu", None,
+               total["grouped_gemm"] + total["grouped_wgrad"],
+               mg["gate_up_fwd"],
+               moonlight_launches_per_step={
+                   key: mo["launches_per_step"][key] for key in (
+                       "grouped_gemm", "grouped_wgrad", "embed_grad")},
+               replaces_note="no TPU kernel: the JAX package has no expert "
+                             "layer",
+               **{case: r for case, r in mg.items() if case != "gate_up_fwd"}),
     ], "launches_by_path": paths,
         "docs_per_s": {"unpacked": s["unpacked"]["docs_per_s"],
                        "packed_bucketed": s["packed"]["docs_per_s"]},

@@ -3,7 +3,9 @@
 Takes a first-stage run {qid: [doc_id, ...]}, scores every (query, doc)
 prompt with the model in fixed-size batches on ``device`` (default cuda),
 and returns each query's candidates ordered by score (``int8=True``: the
-W8A8 forward of models/quant.py). Host-side prompt assembly, padding,
+W8A8 forward of models/quant.py, T5 only). The model is reached through
+``models.interface.for_config(cfg)``: monoT5 for a ``T5Config``, the
+decoder-only reranker for a ``DeepseekV3Config``. Host-side prompt assembly, padding,
 packing and length bucketing are the JAX ``Reranker``'s, line for line, so
 the two packages batch the same pairs at the same lengths.
 """
@@ -19,7 +21,8 @@ import torch
 from pacednegatives_tpu_torch.data.corpus import TextCorpus
 from pacednegatives_tpu_torch.data.pipeline import TokenizedStore
 from pacednegatives_tpu_torch.models import t5
-from pacednegatives_tpu_torch.models.monot5 import score_batch
+from pacednegatives_tpu_torch.models.interface import T5Model, for_config
+from pacednegatives_tpu_torch.models.monot5 import serving_params  # noqa: F401
 from pacednegatives_tpu_torch.models.quant import (
     quantize_scoring_params,
     score_batch_int8,
@@ -31,31 +34,10 @@ from pacednegatives_tpu_torch.utils.profiling import (
     span,
 )
 
-# leaves that only ever enter a matmul in cfg.dtype: casting them once is
-# the same as the per-use casts (norm scales and rel_bias stay fp32)
-_MATMUL_LEAVES = {"q", "k", "v", "o", "qkv", "kv", "wi", "wo", "wi_0", "wi_1",
-                  "embedding"}
-
-
-def serving_params(params: dict, cfg: t5.T5Config,
-                   device: torch.device) -> dict:
-    """Frozen serving weights on ``device``: q|k|v and k|v fused once
-    (the JAX Reranker re-concatenates per call, t5.py:464-479; same
-    numbers) and matmul weights cast to the compute dtype once."""
-    fused = t5.fuse_attention_params(params)
-    flat = {
-        k: v.to(device=device,
-                dtype=cfg.dtype if k.rsplit(".", 1)[-1] in _MATMUL_LEAVES
-                else v.dtype)
-        for k, v in t5.flatten_params(fused).items()
-    }
-    return t5.unflatten_params(flat)
-
-
 @dataclasses.dataclass
 class Reranker:
     params: dict
-    cfg: t5.T5Config
+    cfg: t5.T5Config  # or a DeepseekV3Config
     store: TokenizedStore
     corpus: TextCorpus
     rel_id: int
@@ -82,7 +64,10 @@ class Reranker:
             raise RuntimeError(
                 "Reranker(device='cuda'): torch.cuda.is_available() is "
                 "false; pass device='cpu' to score on the CPU")
+        model = for_config(self.cfg)
         if self.int8:
+            if not isinstance(model, T5Model):
+                raise NotImplementedError("int8 serving is monoT5's")
             # from the weights as given (fp32 in a checkpoint), as the JAX
             # Reranker quantizes them, not from the bf16 serving copy; the
             # fused layout's per-column codes and scales are the separate
@@ -94,8 +79,10 @@ class Reranker:
                     self.cfg)
             self._score_fn = score_batch_int8
         else:
-            self.params = serving_params(self.params, self.cfg, self.device)
-            self._score_fn = score_batch
+            self.params = model.serving_params(self.params, self.device)
+            self._score_fn = (
+                lambda params, cfg, ids, mask, rel_id, nrel_id:
+                model.score_batch(params, ids, mask, rel_id, nrel_id))
 
     def _score(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():

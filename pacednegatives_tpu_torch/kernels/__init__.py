@@ -26,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("gemm_bf16.cu", "t5_attention_fwd.cu", "t5_attention_bwd.cu",
-           "t5_attention_bwd_fp32.cu", "mips_topk.cu", "embed_grad.cu")
+           "t5_attention_bwd_fp32.cu", "mips_topk.cu", "embed_grad.cu",
+           "moe_gemm.cu")
 HEADERS = ("hopper_pipeline.cuh", "t5_attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -79,6 +80,9 @@ _SIGNATURES = {
     "pnt_embed_grad": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # n, d, vocab, &bytes: its scratch bytes
     "pnt_embed_grad_scratch": (_I, _I, _I, ctypes.POINTER(_LL)),
+    # A, B, C, offs, E, rows, K, N, mode (0 rows grouped, 1 dW), device,
+    # stream
+    "pnt_moe_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

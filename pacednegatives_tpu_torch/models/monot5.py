@@ -17,6 +17,27 @@ from pacednegatives_tpu_torch.utils.profiling import host_sync
 VERBALIZER_TRUE = 1176
 VERBALIZER_FALSE = 6136
 
+# leaves that only ever enter a matmul in cfg.dtype: casting them once is
+# the same as the per-use casts (norm scales and rel_bias stay fp32)
+_MATMUL_LEAVES = {"q", "k", "v", "o", "qkv", "kv", "wi", "wo", "wi_0", "wi_1",
+                  "embedding"}
+
+
+def serving_params(params: dict, cfg: t5.T5Config,
+                   device: torch.device) -> dict:
+    """Frozen serving weights on ``device`` (the ``Reranker``'s copy):
+    q|k|v and k|v fused once (the JAX Reranker re-concatenates per call,
+    t5.py:464-479; same numbers) and matmul weights cast to the compute
+    dtype once."""
+    fused = t5.fuse_attention_params(params)
+    flat = {
+        k: v.to(device=device,
+                dtype=cfg.dtype if k.rsplit(".", 1)[-1] in _MATMUL_LEAVES
+                else v.dtype)
+        for k, v in t5.flatten_params(fused).items()
+    }
+    return t5.unflatten_params(flat)
+
 
 def _pair(first_token_logits: torch.Tensor, rel_id: int, nrel_id: int,
           vocab_size: int | None = None) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """The train steps: the port of train/step.py.
 
-``make_train_step``: compute the position biases once from the two rel_bias
-tables, cast the big weights to the compute dtype once (and concatenate
-q|k|v once, with fused_qkv), one teacher-forced forward over [positives;
-negatives] per microbatch and its backward by autograd, gradient
-accumulation over the microbatches in ``grad_accum_dtype``, the biases'
-accumulated cotangent folded back into the tables through the gather's
-backward, the optimizer, then the curriculum update from the same pass's
-CE values (step.py:145-330), for the pair loss (the interp, level, eta and
+``make_train_step``: the model's compute-dtype leaves once a step
+(``models/interface.py``; T5: the position biases from the two rel_bias
+tables, the big weights cast and q|k|v concatenated once), one forward
+over [positives; negatives] per microbatch and its backward by autograd,
+gradient accumulation over the microbatches in ``grad_accum_dtype``, the
+gradients folded back into the parameters' tree (T5: the biases'
+cotangent through the gather's backward), the optimizer, then the
+curriculum update from the same pass's CE values (step.py:145-330), for
+the pair loss (the interp, level, eta and
 contrast curricula: one negative an example, per-token signals) and the
 LCE loss (n negatives). With ``dropout``, each microbatch draws its masks
 from its own seed, taken on the host from ``state.dropout_generator`` (the
@@ -27,6 +28,7 @@ import torch
 from pacednegatives_tpu_torch.curriculum.base import StepSignals
 from pacednegatives_tpu_torch.curriculum.meta import MetaWeightTable
 from pacednegatives_tpu_torch.models import t5
+from pacednegatives_tpu_torch.models.interface import for_config
 from pacednegatives_tpu_torch.models.monot5 import relevance_probs
 from pacednegatives_tpu_torch.ops.losses import (
     lce_ce,
@@ -51,20 +53,8 @@ from pacednegatives_tpu_torch.utils.profiling import span
 Batch = dict[str, torch.Tensor]
 
 
-def _fold_rel_bias_grad(grads: dict, stack_key: str, g: torch.Tensor) -> None:
-    """Add ``g`` into the rel_bias leaf of ``grads[stack_key]`` (the stacked
-    layout's top-level ``rel_bias`` or ``block_0.self_attn.rel_bias``), in
-    place (step.py:41-54)."""
-    stack = grads[stack_key]
-    if "rel_bias" in stack:
-        stack["rel_bias"] = stack["rel_bias"] + g
-    else:
-        sa = stack["block_0"]["self_attn"]
-        sa["rel_bias"] = sa["rel_bias"] + g
-
-
 def make_train_step(
-    model_cfg: t5.T5Config,
+    model_cfg,
     controller,
     tx,
     loss: str = "pair",
@@ -77,7 +67,10 @@ def make_train_step(
     microbatches: int = 1,
     grad_accum_dtype: str = "fp32",
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
-    """Build step(state, batch) -> (state, metrics).
+    """Build step(state, batch) -> (state, metrics) for the model of
+    ``model_cfg`` (``models.interface.for_config``: a ``T5Config`` or a
+    ``DeepseekV3Config``; the latter trains on its verbalizer's CE at the
+    last real position, the labels' first column).
 
     loss="pair": main = mean(pce) + mean(nce); the curriculum signals are
     per label TOKEN, (B*L_label,), with ce = (pce + nce) / 2, and success
@@ -126,31 +119,8 @@ def make_train_step(
         )
     n = n_neg_per_example
     k = microbatches
+    model = for_config(model_cfg)
     acc_dt = torch.float32 if grad_accum_dtype == "fp32" else torch.bfloat16
-
-    def _pre(p: torch.Tensor, width: int) -> torch.Tensor:
-        # the big matmul weights in the compute dtype, once per step
-        # (step.py:186-198), by the whole leaf's last dim ``width``; 1-D
-        # scales and the (buckets, H) rel_bias stay
-        if p.dim() >= 2 and width >= 128 and p.dtype == torch.float32:
-            p = p.to(model_cfg.dtype)
-        return p.detach().requires_grad_(True)
-
-    def _widths(src: dict, mesh, dims) -> dict:
-        """Each leaf's whole last dim: a slice's times ``model`` where
-        the leaf splits its last dim (a fused q|k|v or k|v as its q or k
-        does)."""
-        flat = t5.flatten_params(src)
-        if dims is None:
-            return {k: p.shape[-1] for k, p in flat.items()}
-        dims = t5.flatten_params(dims)
-        out = {}
-        for key, p in flat.items():
-            base = (key[:-3] + "q" if key.endswith(".qkv") else
-                    key[:-2] + "k" if key.endswith(".kv") else key)
-            split_last = dims.get(base) == p.dim() - 1
-            out[key] = p.shape[-1] * (mesh.model if split_last else 1)
-        return out
 
     def objective(ce_tok, labels, b):
         """(main loss, (sig_p, sig_n, sig_ce)) of per-token CE rows
@@ -168,16 +138,15 @@ def make_train_step(
             sig_ce = lce_ce(pce, nce, n, use_mean)
         return sig_ce.mean(), (pce, nce, sig_ce)
 
-    def loss_fn(mesh, params, biases, seed, pos_ids, pos_mask, pos_labels,
+    def loss_fn(mesh, prep, seed, pos_ids, pos_mask, pos_labels,
                 neg_ids, neg_mask, neg_labels):
         # one forward over [positives; negatives]
         b = pos_ids.shape[0]
         ids = torch.cat([pos_ids, neg_ids])
         mask = torch.cat([pos_mask, neg_mask])
         labels = torch.cat([pos_labels, neg_labels])
-        logits = t5.forward_logits(params, model_cfg, ids, labels, mask,
-                                   deterministic=not dropout,
-                                   dropout_seed=seed, pos_biases=biases)
+        logits, labels = model.logits(prep, ids, mask, labels, seed,
+                                      deterministic=not dropout)
         ce_tok = token_ce_per_token(logits, labels,
                                     vocab_size=model_cfg.vocab_size)
         main, sig = objective(ce_tok, labels, b)
@@ -208,27 +177,9 @@ def make_train_step(
             dims = state.param_dims
         with span("pnt.step.prepare"):
             B = batch["pos_ids"].shape[0]
-            # Position biases once per step, not per microbatch (step.py:
-            # 165-178): the microbatches differentiate against the bias
-            # tensors, whose summed cotangent goes through the bucket
-            # gather's backward once, below.
-            tables = [t5._rel_bias(state.params[s]).detach()
-                      .requires_grad_(True) for s in ("encoder", "decoder")]
-            with torch.enable_grad():
-                full = t5.position_bias_from_tables(
-                    *tables, model_cfg, batch["pos_ids"].shape[1],
-                    batch["pos_labels"].shape[1])
-            bias_keys = ("enc", "dec_self")
-            biases = {key: full[key].detach().requires_grad_(True)
-                      for key in bias_keys}
-            with torch.no_grad():
-                src = (t5.fuse_attention_params(state.params)
-                       if model_cfg.fused_qkv else state.params)
-            widths = _widths(src, mesh, dims)
-            flat = {k: _pre(p, widths[k])
-                    for k, p in t5.flatten_params(src).items()}
-            params_c = t5.unflatten_params(flat)
-            leaves = [*flat.values(), *(biases[key] for key in bias_keys)]
+            prep = model.prepare(state.params, batch["pos_ids"].shape[1],
+                                 batch["pos_labels"].shape[1], mesh, dims)
+            leaves = prep.leaves
             keys = ("pos_ids", "pos_mask", "pos_labels", "neg_ids",
                     "neg_mask", "neg_labels")
             if k <= 1:
@@ -257,8 +208,7 @@ def make_train_step(
         for chunk, seed in zip(chunks, seeds):
             with span("pnt.step.fwd_bwd"):
                 with torch.enable_grad():
-                    l_i, aux_i = loss_fn(mesh, params_c, biases, seed,
-                                         *chunk)
+                    l_i, aux_i = loss_fn(mesh, prep, seed, *chunk)
                     g_i = torch.autograd.grad(l_i, leaves,
                                               allow_unused=True)
                 g_i = [torch.zeros_like(p) if g is None else g
@@ -284,14 +234,7 @@ def make_train_step(
                 # one global-batch step: the ranks' gradients averaged before
                 # the optimizer (and so before its clipping)
                 grads = mean_over_ranks(grads, mesh)
-            gbias = grads[len(flat):]
-            grads = t5.unflatten_params(dict(zip(flat, grads[:len(flat)])))
-            if model_cfg.fused_qkv:
-                grads = t5.split_attention_grads(grads)
-            g_enc, g_dec = torch.autograd.grad(
-                [full[key] for key in bias_keys], tables, grad_outputs=gbias)
-            _fold_rel_bias_grad(grads, "encoder", g_enc)
-            _fold_rel_bias_grad(grads, "decoder", g_dec)
+            grads = model.fold(prep, grads)
             updates, opt_state = tx.update(grads, state.opt_state,
                                            state.params, model_dims=dims)
             params = apply_updates(state.params, updates)

@@ -13,8 +13,10 @@ phase; not in its warm-up): each layer opens ``pnt.<layer>.<part>`` spans,
 which lie in the device trace as ``record_function`` scopes and in
 ``recorded()`` with their parents, ids and host times; ``host_sync`` marks
 each blocking device-to-host read, and each copy that waits on the stream,
-as a ``pnt.sync.<site>`` span and a ``host_syncs`` count. With no
-profiler recording, each costs one read of the profiler's flag.
+as a ``pnt.sync.<site>`` span and a ``host_syncs`` count;
+``count_device`` sums a count that lives on the device there, read back
+once by ``recorded()``. With no profiler recording, each costs one read
+of the profiler's flag.
 """
 
 from __future__ import annotations
@@ -199,6 +201,7 @@ def debug_nans(enable: bool = True):
 _NULL = contextlib.nullcontext()
 _spans: list = []  # [name, parent record, id, start ns, end ns, child ns]
 _counts: dict[str, float] = {}
+_device_counts: dict[str, torch.Tensor] = {}  # sums kept on the device
 _count_lock = threading.Lock()  # threads add to one counter
 _local = threading.local()  # .stack: the thread's open span records
 _clock = time.perf_counter_ns
@@ -257,6 +260,16 @@ def count(name: str, n: float = 1) -> None:
             _counts[name] = _counts.get(name, 0) + n
 
 
+def count_device(name: str, n: torch.Tensor) -> None:
+    """Add the device scalar ``n`` to the counter ``name`` while a profiler
+    records, on the device: no read back (``recorded()`` reads the sum)."""
+    if _autograd_profiler._is_profiler_enabled:
+        n = n.detach().to(torch.float64)
+        with _count_lock:
+            acc = _device_counts.get(name)
+            _device_counts[name] = n if acc is None else acc + n
+
+
 def host_sync(site: str, n: int = 1):
     """Span ``pnt.sync.<site>`` around a statement that blocks the host on
     the card: a read back to the host, or a copy from pageable host memory
@@ -275,10 +288,13 @@ def recorded() -> dict:
     ``parent`` (the parent's index in the list, or None), ``id``,
     ``start_ns`` / ``end_ns`` (``time.perf_counter_ns``; ``end_ns`` None
     while open), ``dur_ns`` and ``self_ns`` (the duration less what its
-    children cover); and ``counts``."""
+    children cover); and ``counts``, the device sums (``count_device``)
+    among them, read back here (one wait on the device)."""
     spans = list(_spans)
     with _count_lock:
         counts = dict(_counts)
+        for name, n in _device_counts.items():
+            counts[name] = counts.get(name, 0) + float(n)
     index = {id(r): i for i, r in enumerate(spans)}
     out = []
     for name, parent, sid, t0, t1, child in spans:
@@ -295,6 +311,7 @@ def reset() -> None:
     _spans.clear()
     with _count_lock:
         _counts.clear()
+        _device_counts.clear()
 
 
 class StepTimer:

@@ -1219,3 +1219,135 @@ def test_embed_grad_raises_on_what_it_cannot_take(cuda):
         embedding.embedding_grad(g, ids.cpu(), 10)
     with pytest.raises(ValueError):
         embedding.embedding_grad(g[:, :4], ids, 10)
+
+
+# -- M1: the expert layers' grouped GEMM --------------------------------------
+
+
+def _moe_case(g, T, K, N, E=64, held=8, k=6, empty=None):
+    from pacednegatives_tpu_torch.ops import moe
+
+    logits = torch.rand(T, E, generator=g, device="cuda")
+    if empty is not None:
+        logits[:, empty] = -1.0  # an expert no token picks
+    plan = moe.dispatch_plan(torch.topk(logits, k, dim=-1).indices, 0, held)
+    end = int(plan["offs"][-1])
+    x = _randn(g, plan["rows"], K)
+    x[end:] = 0
+    w = _randn(g, held, K, N, scale=K ** -0.5)
+    return plan, end, x, w
+
+
+@pytest.mark.parametrize("T,K,N,empty", [
+    (20000, 2048, 2816, None),  # the Moonlight cell's gate|up
+    (20000, 1408, 2048, None),  # its down projection
+    (900, 128, 320, 3),  # a ragged N tile and an expert with no tokens
+])
+def test_moe_gemm_matches_plain_and_grouped_mm(cuda, T, K, N, empty):
+    from pacednegatives_tpu_torch.ops import moe
+
+    plan, end, x, w = _moe_case(cuda, T, K, N, empty=empty)
+    offs = plan["offs"]
+    before = moe.grouped_gemm.launches
+    y = moe.grouped_gemm(x, w, offs)
+    assert moe.grouped_gemm.launches == before + 1
+    want = moe.grouped_gemm_plain(x, w, offs)
+    # bf16 out of an fp32 sum: half an ulp, and the sums' orders
+    scale = want[:end].float().abs().max()
+    assert (y[:end].float() - want[:end].float()).abs().max() <= 8e-3 * scale
+    if hasattr(torch, "_grouped_mm"):
+        lib = torch._grouped_mm(x[:end], w, offs=offs[1:])
+        assert (y[:end].float() - lib.float()).abs().max() <= 8e-3 * scale
+
+    # the backward: dX over the transposed weights, dW over each segment
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+    dy = _randn(cuda, x.shape[0], N)
+    dy[end:] = 0
+    moe.GroupedGemm.apply(xg, wg, offs).backward(dy)
+    dx = moe.grouped_gemm_plain(dy, w.transpose(1, 2).contiguous(), offs)
+    dw = moe.grouped_wgrad_plain(x, dy, offs)
+    assert (xg.grad[:end].float() - dx[:end].float()).abs().max() <= \
+        8e-3 * dx[:end].float().abs().max()
+    assert (wg.grad.float() - dw.float()).abs().max() <= \
+        8e-3 * dw.float().abs().max()
+    if empty is not None:
+        assert not wg.grad[empty].any()
+
+
+def test_moe_gemm_raises_on_what_it_cannot_take(cuda):
+    from pacednegatives_tpu_torch.ops import moe
+
+    plan, end, x, w = _moe_case(cuda, 300, 128, 64)
+    offs = plan["offs"]
+    with pytest.raises(ValueError):
+        moe.grouped_gemm(x[:-1], w, offs)  # rows not a multiple of 128
+    with pytest.raises(ValueError):
+        moe.grouped_gemm(x, w.float(), offs)
+    with pytest.raises(ValueError):
+        moe.grouped_gemm(x, w, offs.long())
+    with pytest.raises(ValueError):
+        moe.grouped_wgrad(x[:, :96].contiguous(), x, offs)  # M % 128
+
+
+def test_moe_gemm_with_an_empty_buffer_launches_nothing(cuda):
+    """An expert layer with no pair on a held expert: no rows, no launch,
+    a zero dW."""
+    from pacednegatives_tpu_torch.ops import moe
+
+    x = torch.empty(0, 128, dtype=torch.bfloat16, device="cuda")
+    dy = torch.empty(0, 64, dtype=torch.bfloat16, device="cuda")
+    w = _randn(cuda, 8, 128, 64)
+    offs = torch.zeros(9, dtype=torch.int32, device="cuda")
+    before = (moe.grouped_gemm.launches, moe.grouped_wgrad.launches)
+    assert moe.grouped_gemm(x, w, offs).shape == (0, 64)
+    dw = moe.grouped_wgrad(x, dy, offs)
+    assert dw.shape == (8, 128, 64) and not dw.any()
+    assert (moe.grouped_gemm.launches, moe.grouped_wgrad.launches) == before
+
+
+def test_deepseek_step_on_the_card_matches_the_cpu(cuda):
+    """A tiny DeepSeek-V3 forward and backward on the card (bf16: M1, E1,
+    SDPA) against the same on the CPU in fp32. The router's choice is made
+    decisive (zero router weights, a correction bias with wide gaps: the
+    same 3 experts for every token, 3 held experts left empty), since a
+    bf16 rounding flips near-tied choices and moves an expert's gradient
+    by its tokens (the CPU tests hold the router itself)."""
+    from pacednegatives_tpu_torch.models import deepseek_v3 as ds
+    from pacednegatives_tpu_torch.models.interface import for_config
+
+    cfg = ds.DeepseekV3Config.tiny(hidden_size=128, moe_intermediate_size=128,
+                                   intermediate_size=256, dtype=torch.float32)
+    params = ds.init_params(cfg, torch.Generator().manual_seed(0))
+    for i in range(cfg.first_k_dense_replace, cfg.num_hidden_layers):
+        router = params["layers"][f"layer_{i}"]["router"]
+        router["weight"].zero_()
+        router["bias"].copy_(torch.tensor([0.0, 3.0, 2.5, 2.0, 1.0, 0.5,
+                                           0.2, 0.1]))
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, cfg.vocab_size, (12, 40), generator=gen)
+    mask = (torch.rand(12, 40, generator=gen) > 0.3).int()
+    mask[:, 0] = 1
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        c = ds.DeepseekV3Config.tiny(**{**{
+            f: getattr(cfg, f) for f in ("hidden_size",
+                                         "moe_intermediate_size",
+                                         "intermediate_size")},
+            "dtype": dtype})
+        model = for_config(c)
+        p = ds.unflatten_params({k: v.to(dev) for k, v in
+                                 ds.flatten_params(params).items()})
+        prep = model.prepare(p, 40, 2, None, None)
+        logits, _ = model.logits(prep, ids.to(dev), mask.to(dev),
+                                 torch.zeros(12, 2, dtype=torch.long,
+                                             device=dev), None, True)
+        loss = torch.log_softmax(logits[:, 0], -1)[:, 3].sum()
+        grads = torch.autograd.grad(loss, prep.leaves)
+        out[dev] = (logits.float().cpu(), [gr.float().cpu() for gr in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    # bf16 activations on the card against fp32 on the CPU: ~1e-2 of the
+    # logits' scale after 3 layers
+    assert (lc - lg).abs().max() <= 5e-2 * lc.abs().max()
+    for a, b in zip(gc, gg):
+        assert (a - b).norm() <= 0.1 * a.norm() + 1e-6
